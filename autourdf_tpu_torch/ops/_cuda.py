@@ -38,6 +38,8 @@ _SIGNATURES = {
         "knn_tile_rows": ([], _I),
         "knn_bidir_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
         "knn_min_bidir_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "knn_nn_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "knn_bidir_acc_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     },
 }
 

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .fps import farthest_point_sample
+
 
 class KMeansResult(NamedTuple):
     centers: torch.Tensor  # (..., K, D)
@@ -122,16 +124,17 @@ def kmeans(
     n_init: int = 4,
     seed_mode: str = "kmeans++",
 ) -> KMeansResult:
-    """k-means with ``n_init`` k-means++ restarts, best inertia wins.
+    """k-means with ``n_init`` restarts, best inertia wins.
 
-    The restarts run as one batched :func:`lloyd`.  ``seed_mode="fps"``
-    (farthest-point seeding) needs ops/fps.py, which this port does not
-    have yet.
+    ``seed_mode="kmeans++"``: D^2-weighted seeding (reference parity); the
+    restarts run as one batched :func:`lloyd`.  ``seed_mode="fps"``:
+    farthest-point seeding over the first three feature columns, which
+    spreads the seeds over the surface whatever the sampling density, so
+    every geometrically distinct part gets a seed; deterministic, one run.
     """
     if seed_mode == "fps":
-        raise NotImplementedError(
-            "seed_mode='fps' needs ops/fps.py, not ported yet "
-            "(ROADMAP.md Queue 1 item 7: ICP, FPS and plane)")
+        idx = farthest_point_sample(points[:, :3], k, mask)
+        return lloyd(points, points[idx], iters, mask)
     if seed_mode != "kmeans++":
         raise ValueError(f"unknown seed_mode {seed_mode!r}")
     inits = torch.stack([kmeans_plusplus_init(generator, points, k, mask)

@@ -1,8 +1,10 @@
 """Nearest-neighbour search over point clouds: CUDA kernels + plain PyTorch.
 
-Port of autourdf_tpu.ops.knn for the two searches on the registration
-path.  Both functions take one cloud pair ``x (N, 3)``, ``y (M, 3)`` or a
-sequence batch ``x (S, N, 3)``, ``y (S, M, 3)``, fp32; ``norm=1`` is the
+Port of autourdf_tpu.ops.knn: the one-directional search (ICP
+correspondences, the carry test), the bidirectional search with indices
+(per-tile and accumulator kernels, chosen by size) and the min-only
+bidirectional search.  Every function takes one cloud pair ``x (N, 3)``, ``y (M, 3)`` or a
+batch ``x (S, N, 3)``, ``y (S, M, 3)``, fp32; ``norm=1`` is the
 L1 distance, ``norm=2`` the squared L2 distance; ties resolve to the first
 index, as ``jnp.argmin`` does.
 
@@ -32,7 +34,19 @@ PAD_COORD = 1e6
 
 # Kernel launch counts, one per wrapper: each adds one where it launches its
 # kernel and nowhere else, so a run can show the main path went through it.
-launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0}
+launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0}
+
+# nn_search_bidirectional takes the accumulator kernel when the per-tile
+# kernel's (S, tiles, M) column scratch (8 bytes an entry) would exceed this
+# many bytes.  On an H100 the accumulator was the faster of the two at both
+# shapes timed (device time 0.089 against 0.118 ms at S=5, N=M=4,988 with
+# 31 MB of scratch; 0.236 against 0.378 ms at S=1, N=M=20,000 with 100 MB;
+# chip_smoke.py, PERF.md), so everything above the production shape of the
+# registration goes to it.  That shape itself (5 sequences of up to 5,000
+# points, 31.4 MB) stays on the per-tile kernel: there the search is 1% of a
+# host-bound epoch, and moving the main path is left to a change that
+# measures it end to end.
+ACC_SCRATCH_BYTES = 32 * 1024 * 1024
 
 
 def reset_launch_counts() -> None:
@@ -158,6 +172,65 @@ def _nn_min_bidir_cuda(x, y, norm: int):
     return dx, cbits.view(torch.float32)
 
 
+def _nn_cuda(x, y, norm: int):
+    """Replaces _nn_kernel (autourdf_tpu/ops/knn.py:54).  Bound on the H100
+    by fp32 ALU work (~8 ops per pair over S*N*M pairs); row results only,
+    so no scratch and no traffic beyond inputs and outputs."""
+    x, y = _check_cuda(x, y)
+    lib = _cuda.library("knn")
+    S, N, M = x.shape[0], x.shape[1], y.shape[1]
+    dx = torch.empty((S, N), dtype=torch.float32, device=x.device)
+    ix = torch.empty((S, N), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.knn_nn_launch(x.data_ptr(), y.data_ptr(), S, N, M, norm,
+                                dx.data_ptr(), ix.data_ptr(), _stream(x))
+    _cuda.check(err, "knn_nn_launch")
+    launch_counts["nn"] += 1
+    return dx, ix
+
+
+# (bits of +inf) << 32 | INT_MAX: above every (distance, row) word
+_ACC_INIT = (0x7F800000 << 32) | 0x7FFFFFFF
+
+
+def _nn_bidir_acc_cuda(x, y, norm: int):
+    """Replaces _nn_bidir_acc_kernel (autourdf_tpu/ops/knn.py:233).  Bound on
+    the H100 by fp32 ALU work (~9 ops per pair); the column (min, argmin)
+    meet in one 64-bit atomicMin word per y point instead of the per-tile
+    kernel's (S, tiles, M) scratch."""
+    x, y = _check_cuda(x, y)
+    lib = _cuda.library("knn")
+    S, N, M = x.shape[0], x.shape[1], y.shape[1]
+    dx = torch.empty((S, N), dtype=torch.float32, device=x.device)
+    ix = torch.empty((S, N), dtype=torch.int64, device=x.device)
+    packed = torch.full((S, M), _ACC_INIT, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.knn_bidir_acc_launch(x.data_ptr(), y.data_ptr(), S, N, M, norm,
+                                       dx.data_ptr(), ix.data_ptr(), packed.data_ptr(),
+                                       _stream(x))
+    _cuda.check(err, "knn_bidir_acc_launch")
+    launch_counts["nn_bidir_acc"] += 1
+    dy, iy = _unpack_columns(packed)
+    return dx, ix, dy, iy
+
+
+def _unpack_columns(packed: torch.Tensor):
+    """(S, M) int64 words, distance bits high and x row low -> (dy, iy)."""
+    dy = (packed >> 32).to(torch.int32).view(torch.float32)
+    iy = packed & 0xFFFFFFFF
+    return dy, iy
+
+
+def _nn_bidir_auto_cuda(x, y, norm: int):
+    """The per-tile kernel while its column scratch is small, the
+    accumulator kernel above ACC_SCRATCH_BYTES (the counterpart of the
+    _bidir_vmem_ok dispatch at autourdf_tpu/ops/knn.py:429-444)."""
+    tiles = -(-x.shape[1] // _cuda.library("knn").knn_tile_rows())
+    if x.shape[0] * tiles * y.shape[1] * 8 > ACC_SCRATCH_BYTES:
+        return _nn_bidir_acc_cuda(x, y, norm)
+    return _nn_bidir_cuda(x, y, norm)
+
+
 def _dispatch(x, y, norm, cuda_fn, plain_fn):
     if norm not in (1, 2):
         raise ValueError(f"norm must be 1 or 2, got {norm}")
@@ -179,7 +252,7 @@ def nn_search_bidirectional(
     ``dx, ix`` are x -> y (min distance and int64 index into y), ``dy, iy``
     are y -> x.  Every pairwise distance is computed once.
     """
-    return _dispatch(x, y, norm, _nn_bidir_cuda, _nn_bidir_plain)
+    return _dispatch(x, y, norm, _nn_bidir_auto_cuda, _nn_bidir_plain)
 
 
 def nn_min_bidirectional(
@@ -191,3 +264,15 @@ def nn_min_bidirectional(
     :func:`nn_search_bidirectional` without the index bookkeeping.
     """
     return _dispatch(x, y, norm, _nn_min_bidir_cuda, _nn_min_bidir_plain)
+
+
+def nn_search(x: torch.Tensor, y: torch.Tensor, norm: Norm = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each point of ``x``, the nearest point of ``y``: ``(dist, idx)``.
+
+    ``dist`` is the L1 distance (norm=1) or the squared L2 distance
+    (norm=2), ``idx`` int64 into ``y``.  Sentinel ``y`` points (coordinate
+    ``PAD_COORD``) are never selected while one real point exists; with none
+    the result is index 0 at a finite distance.  Not differentiable; gather
+    ``y[idx]`` for gradients.
+    """
+    return _dispatch(x, y, norm, _nn_cuda, _nn_plain)

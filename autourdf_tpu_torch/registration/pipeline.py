@@ -23,7 +23,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.icp import masked_icp_clusters
 from ..ops.kmeans import lloyd
+from ..ops.plane import estimate_normals
 from .optimizer import train_pose_mlp, transform_by_labels
 from .segments import SegmentInit, local_points_from_labels
 
@@ -39,11 +41,11 @@ class RegistrationConfig(NamedTuple):
     scheduler_patience: int = 5
     scheduler_factor: float = 0.7
     kmeans_iters: int = 32
-    mlp_icp: bool = False          # step train -> masked per-cluster ICP (not ported)
+    mlp_icp: bool = False          # step train -> masked per-cluster ICP
     icp_iterations: int = 30
     icp_box_scale: float = 1.2
     dispatch_epochs: int = 100     # accepted for parity; no effect in eager mode
-    use_normals: bool = False      # 6-D k-means features (not ported)
+    use_normals: bool = False      # 6-D k-means features (xyz + 0.5*normals)
     corr_every: int = 1            # NN-search refresh period (1 = every epoch,
                                    # reference-exact; >1 = amortized ICP-style)
 
@@ -54,17 +56,6 @@ class SequenceResult(NamedTuple):
     labels: torch.Tensor        # (S, T, N) int64 cluster assignments
     losses: torch.Tensor        # (S, T-1) best anchor-phase Chamfer per frame pair
     step_losses: torch.Tensor   # (S, T-1) best step-phase Chamfer per frame pair
-
-
-def _check_supported(cfg: RegistrationConfig) -> None:
-    if cfg.mlp_icp:
-        raise NotImplementedError(
-            "mlp_icp needs ops/icp.py, not ported yet "
-            "(ROADMAP.md Queue 1 item 7: ICP, FPS and plane)")
-    if cfg.use_normals:
-        raise NotImplementedError(
-            "use_normals needs ops/plane.py, not ported yet "
-            "(ROADMAP.md Queue 1 item 7: ICP, FPS and plane)")
 
 
 def register_sequences_batched(
@@ -85,7 +76,6 @@ def register_sequences_batched(
     frame-0 segmentation; ``frames[:, 0]`` is the frame it came from.
     Returns per-frame results with the frame-0 state prepended.
     """
-    _check_supported(cfg)
     S, T = frames.shape[0], frames.shape[1]
     tile = lambda x: x[None].expand((S,) + x.shape)
     matrices = tile(init.matrices)
@@ -116,15 +106,31 @@ def register_sequences_batched(
         step_res = train_pose_mlp(model, step_theta, matrices, target, points, labels,
                                   target_mask, points_mask, learning_rate=cfg.lr_step, **train)
         step_theta = step_res.params
-        anchor_res = train_pose_mlp(model, anchor_theta, step_res.best_matrices, target,
-                                    anchor_points, anchor_labels, target_mask, anchor_mask,
-                                    learning_rate=cfg.lr_anchor, **train)
-        anchor_theta = anchor_res.params
-        new_m = anchor_res.best_matrices
+        if cfg.mlp_icp:
+            # MLP+ICP variant: refine each cluster pose with AABB-masked p2p
+            # ICP instead of the anchor MLP, all S * K clusters as one batch
+            new_m = masked_icp_clusters(points, labels, step_res.best_matrices, target,
+                                        num_clusters=cfg.num_seg, scale=cfg.icp_box_scale,
+                                        max_iterations=cfg.icp_iterations)
+            loss = step_res.best_loss
+        else:
+            anchor_res = train_pose_mlp(model, anchor_theta, step_res.best_matrices, target,
+                                        anchor_points, anchor_labels, target_mask, anchor_mask,
+                                        learning_rate=cfg.lr_anchor, **train)
+            anchor_theta = anchor_res.params
+            new_m = anchor_res.best_matrices
+            loss = anchor_res.best_loss
 
         # resample: warm-started k-means of the target frame around the
         # updated centres, then re-express points in their cluster frames
-        km = lloyd(target, new_m[..., :3, 3], iters=cfg.kmeans_iters, mask=target_mask)
+        centres = new_m[..., :3, 3]
+        if cfg.use_normals:
+            normals = torch.stack([estimate_normals(t, k=30) for t in target])
+            km = lloyd(torch.cat([target, 0.5 * normals], dim=-1),
+                       torch.cat([centres, torch.zeros_like(centres)], dim=-1),
+                       iters=cfg.kmeans_iters, mask=target_mask)
+        else:
+            km = lloyd(target, centres, iters=cfg.kmeans_iters, mask=target_mask)
         labels = km.labels
         points = local_points_from_labels(new_m, target, labels)
         points_mask = target_mask
@@ -132,7 +138,7 @@ def register_sequences_batched(
         out_m.append(matrices)
         out_p.append(points)
         out_l.append(labels)
-        out_loss.append(anchor_res.best_loss)
+        out_loss.append(loss)
         out_step_loss.append(step_res.best_loss)
 
     return SequenceResult(

@@ -14,6 +14,7 @@ import torch
 
 from ..core import se3
 from ..ops.kmeans import kmeans
+from ..ops.plane import estimate_normals
 from .optimizer import apply_pose_rows, transform_by_labels
 
 
@@ -47,17 +48,16 @@ def initial_segments(
 ) -> SegmentInit:
     """Segment ``frame0 (N, 3)``; ``generator`` lives on its device.
 
-    ``use_normals`` (the reference's --normal mode) needs ops/plane.py,
-    which is not ported yet.
+    ``use_normals`` augments the k-means features with 0.5-scaled PCA
+    normals (the reference's --normal mode).  ``seed_mode="fps"`` seeds
+    density-independently (ops/kmeans.py) so small links get clusters.
     """
-    if use_normals:
-        raise NotImplementedError(
-            "use_normals needs ops/plane.py, not ported yet "
-            "(ROADMAP.md Queue 1 item 7: ICP, FPS and plane)")
-    res = kmeans(generator, frame0, num_seg, iters=kmeans_iters, mask=mask,
+    feats = (torch.cat([frame0, 0.5 * estimate_normals(frame0, k=30)], dim=-1)
+             if use_normals else frame0)
+    res = kmeans(generator, feats, num_seg, iters=kmeans_iters, mask=mask,
                  n_init=n_init, seed_mode=seed_mode)
     # cluster frames: identity rotation at the k-means centre
-    centers = res.centers
+    centers = res.centers[:, :3]
     matrices = torch.eye(4, dtype=frame0.dtype, device=frame0.device).repeat(num_seg, 1, 1)
     matrices[:, :3, 3] = centers
     local = frame0 - centers[res.labels]

@@ -9,14 +9,29 @@ Phases, each of which fails the run on error:
 2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card (exact
    distances and indices) at the production shape with masked rows and
-   forced ties, at a ragged shape and at the main path's shape; check the
-   Chamfer value and gradients against the plain path on the CPU; time the
-   kernel, the plain version and one library call, beside the bound;
+   forced ties, at a ragged shape and at the main path's shape, the
+   one-directional search also at the ICP batch and the carry-test shapes
+   and with all-sentinel targets, the accumulator kernel also against the
+   per-tile kernel and at 20,000 points; check the Chamfer value and
+   gradients, farthest-point sampling and one ICP step against the plain
+   path on the CPU; time each kernel, its plain version and one library
+   call, beside the bound, and the per-tile and accumulator kernels side by
+   side at both sizes (the dispatch constant of ops/knn.py);
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
    artifacts, the losses and the kernels' launch counts;
-5. print the kernel JSON line, then the result line.
+5. (printed last) the kernel JSON line, then the result line;
+6. the ``urdf`` stage on the artifacts of phase 4: ``workflow.run_build_urdf``
+   with ``refine="none", tree="mst"``, once with the registry's DoF and once
+   with ``unknown_dof=True, dof_probe=False``; check the URDF, its meshes
+   and that the searches went through the one-directional kernel;
+7. ``run_registration(mlp_icp=True, use_normals=True)`` with FPS seeds on the
+   first 2 sequences x 4 frames of the same scans; check the ICP's launches
+   and the loss;
+8. the large-cloud path: one sequence of 3 frames of a synthetic 3-link
+   hinged chain at 20,000 points per frame through ``run_registration``;
+   check that every search took the accumulator kernel, and the loss.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -32,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
@@ -48,6 +64,11 @@ OPS_PER_PAIR = 9
 # order (and index_add_ atomics on the card) move the last bits.
 CHAMFER_RTOL, GRAD_ATOL = 1e-5, 1e-7
 EPOCHS, PAIRS = 300, 9
+# one ICP step, card vs CPU: the same correspondences; the batched 3x3 SVD
+# and the weighted sums differ in the last bits
+ICP_STEP_ATOL = 1e-5
+ICP_ITERATIONS = 30
+LARGE_N = 20000
 
 
 def _fail(msg: str) -> None:
@@ -70,9 +91,30 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(S: int, N: int, M: int, out_bytes_per_point: int) -> tuple[float, str]:
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed time of every device
+    kernel it launches (torch.profiler), whatever the host takes to launch
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def _bound_ms(S: int, N: int, M: int, out_bytes_per_point: int,
+              both_directions: bool = True) -> tuple[float, str]:
+    """Least time for the search: the larger of 9 fp32 operations per pair
+    at the fp32 peak and inputs read once + outputs written once at the
+    memory rate (outputs for x only when ``both_directions`` is False)."""
     ops = S * N * M * OPS_PER_PAIR
-    nbytes = S * (N + M) * 3 * 4 + S * (N + M) * out_bytes_per_point
+    nbytes = (S * (N + M) * 3 * 4
+              + S * (N + (M if both_directions else 0)) * out_bytes_per_point)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -126,7 +168,23 @@ def check_kernels(dev, n_main: int) -> dict:
                   f"max|d-plain| {err_min}")
             if err_min != 0.0:
                 _fail(f"nn_min_bidir disagrees with its plain version ({label}, norm {norm})")
-            out.setdefault(label, {})[norm] = {"bidir": max(errs), "min": err_min}
+            acc = knn._nn_bidir_acc_cuda(x, y, norm)
+            tile = knn._nn_bidir_cuda(x, y, norm)
+            err_acc = max(_max_abs(acc[0], ref[0]), _max_abs(acc[2], ref[2]))
+            same_acc = all(torch.equal(a, b) for a, b in zip(acc, ref))
+            same_tile = all(torch.equal(a, b) for a, b in zip(acc, tile))
+            print(f"  nn_bidir_acc {label:10s} S={S} N={N} M={M} norm={norm}: "
+                  f"max|d-plain| {err_acc}, equal to plain {same_acc}, to per-tile {same_tile}")
+            if err_acc != 0.0 or not same_acc or not same_tile or bool(torch.signbit(acc[2]).any()):
+                _fail(f"nn_bidir_acc disagrees with its plain version ({label}, norm {norm})")
+            gnn = knn.nn_search(x, y, norm)
+            err_nn = _max_abs(gnn[0], ref[0])
+            print(f"  nn           {label:10s} S={S} N={N} M={M} norm={norm}: "
+                  f"max|d-plain| {err_nn}, indices equal {bool(torch.equal(gnn[1], ref[1]))}")
+            if err_nn != 0.0 or not torch.equal(gnn[1], ref[1]):
+                _fail(f"nn disagrees with its plain version ({label}, norm {norm})")
+            out.setdefault(label, {})[norm] = {"bidir": max(errs), "min": err_min,
+                                               "acc": err_acc, "nn": err_nn}
 
         # Chamfer through autograd (indexed kernel + index_add_ backward) and
         # forward-only (min-only kernel), against the plain path on the CPU
@@ -153,6 +211,9 @@ def check_kernels(dev, n_main: int) -> dict:
         if not val_err <= CHAMFER_RTOL or not grad_err <= GRAD_ATOL:
             _fail(f"chamfer_distance on the card disagrees with the plain path ({label})")
 
+    out["extra"] = {n: _check_new_kernel_shapes(dev, n_main, n) for n in (1, 2)}
+    _check_fps_and_icp(dev)
+
     # times at the main path's shape, norm 1 (the Chamfer-L1 loss)
     x, y = _case(np.random.default_rng(1), 5, n_main, n_main, dev, True)
     S, N, M = x.shape[0], x.shape[1], y.shape[1]
@@ -178,49 +239,189 @@ def check_kernels(dev, n_main: int) -> dict:
             bound=_bound_ms(S, N, M, 4)),
     }
     for name, t in timing.items():
-        print(f"  time {name:12s} S={S} N=M={N} norm=1: kernel {t['ms']:.4f} ms, "
+        t["shape"] = f"S={S} N=M={N} norm=1"
+    per_tile_small = timing["nn_bidir"]["ms"]
+    del x, y
+
+    # the one-directional search at the ICP batch of register --mlp_icp:
+    # S * K = 100 clouds of n_main points, squared L2
+    xb, yb = _case(np.random.default_rng(3), 100, n_main, n_main, dev, True)
+
+    def lib_nn():
+        return torch.cdist(xb, yb).min(-1)
+
+    timing["nn"] = dict(
+        ms=_time_ms(lambda: knn.nn_search(xb, yb, 2)),
+        plain_ms=_time_ms(lambda: knn._nn_plain(xb, yb, 2), reps=3, warm=1),
+        library_ms=_time_ms(lib_nn, reps=3, warm=1),
+        bound=_bound_ms(100, n_main, n_main, 4 + 8, both_directions=False),
+        shape=f"S=100 N=M={n_main} norm=2")
+    del xb, yb
+    torch.cuda.empty_cache()
+    # ... and at the carry test's shape: K*K*P = 25,600 queries against 2,048
+    # points, the 9 frame pairs of a sequence in one launch
+    xc, yc = _case(np.random.default_rng(4), 9, 25600, 2048, dev, False)
+    carry = (_time_ms(lambda: knn.nn_search(xc, yc, 2)),
+             _bound_ms(9, 25600, 2048, 4 + 8, both_directions=False))
+    print(f"  time nn           S=9 N=25600 M=2048 norm=2 (carry test): kernel {carry[0]:.4f} ms, "
+          f"bound {carry[1][0]:.4f} ms ({carry[1][1]})")
+    del xc, yc
+
+    # the accumulator kernel at the large-cloud shape, and both indexed
+    # kernels side by side at both sizes: what ACC_SCRATCH_BYTES rests on
+    xs, ys = _case(np.random.default_rng(1), 5, n_main, n_main, dev, True)
+    xl, yl = _case(np.random.default_rng(5), 1, 20000, 20000, dev, True)
+
+    def lib_big():
+        d = torch.cdist(xl, yl, p=1)
+        return d.min(-1), d.min(-2)
+
+    timing["nn_bidir_acc"] = dict(
+        ms=_time_ms(lambda: knn._nn_bidir_acc_cuda(xl, yl, 1)),
+        plain_ms=_time_ms(lambda: knn._nn_bidir_plain(xl, yl, 1), reps=5),
+        library_ms=_time_ms(lib_big, reps=5),
+        bound=_bound_ms(1, 20000, 20000, 4 + 8),
+        shape="S=1 N=M=20000 norm=1")
+    tile_rows = _cuda_tile_rows()
+    for shape, (xa, ya) in ((f"S=5 N=M={n_main}", (xs, ys)), ("S=1 N=M=20000", (xl, yl))):
+        # wrapper time in turns (per-tile, accumulator, accumulator, per-tile),
+        # then the device time of each wrapper's kernels alone
+        wall = [_time_ms(lambda f=f: f(xa, ya, 1)) for f in
+                (knn._nn_bidir_cuda, knn._nn_bidir_acc_cuda, knn._nn_bidir_acc_cuda,
+                 knn._nn_bidir_cuda)]
+        dev_tile = _device_ms(lambda: knn._nn_bidir_cuda(xa, ya, 1))
+        dev_acc = _device_ms(lambda: knn._nn_bidir_acc_cuda(xa, ya, 1))
+        scratch = xa.shape[0] * -(-xa.shape[1] // tile_rows) * ya.shape[1] * 8
+        picks = "accumulator" if scratch > knn.ACC_SCRATCH_BYTES else "per-tile"
+        print(f"  per-tile vs accumulator {shape} norm=1: wrapper per-tile {wall[0]:.4f} / "
+              f"{wall[3]:.4f} ms, accumulator {wall[1]:.4f} / {wall[2]:.4f} ms; device time "
+              f"per-tile {dev_tile:.4f} ms, accumulator {dev_acc:.4f} ms; column scratch "
+              f"{scratch / 1e6:.1f} MB, dispatch takes the {picks} kernel "
+              f"(ACC_SCRATCH_BYTES = {knn.ACC_SCRATCH_BYTES / 1e6:.1f} MB)")
+    print(f"  (indexed wrapper at S=5 also measured above in this run: {per_tile_small:.4f} ms)")
+
+    keys = {"nn_bidir": "bidir", "nn_min_bidir": "min", "nn": "nn", "nn_bidir_acc": "acc"}
+    for name, t in timing.items():
+        print(f"  time {name:12s} {t['shape']}: kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms, library (cdist+min) {t['library_ms']:.4f} ms, "
               f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
-        key = "bidir" if name == "nn_bidir" else "min"
-        t["max_abs_err"] = max(v[n][key] for v in out.values() for n in (1, 2))
+        t["max_abs_err"] = max(v[n][keys[name]] for v in out.values() for n in (1, 2)
+                               if keys[name] in v[n])
     return timing
 
 
-def run_main_path(dev, gpu_line: str) -> dict:
-    """Phase 4: the registration path through its public entry point."""
+def _cuda_tile_rows() -> int:
+    from autourdf_tpu_torch.ops import _cuda
+
+    return _cuda.library("knn").knn_tile_rows()
+
+
+def _check_new_kernel_shapes(dev, n_main: int, norm: int) -> dict:
+    """The shapes only the two new kernels meet: the ICP batch (100 clouds,
+    some targets all at the sentinel, as an AABB gate that leaves no point),
+    the carry test (25,600 queries against 2,048 points) and 20,000-point
+    clouds with forced ties across many tiles."""
+    from autourdf_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(6 + norm)
+    errs = {"nn": 0.0, "acc": 0.0}
+    x, y = _case(rng, 100, n_main, n_main, dev, True)
+    y[::7] = knn.PAD_COORD                      # every 7th target: no point left
+    got, ref = knn.nn_search(x, y, norm), knn._nn_plain(x, y, norm)
+    ok = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    gated_ok = bool((got[1][::7] == 0).all() and torch.isfinite(got[0]).all())
+    errs["nn"] = max(errs["nn"], _max_abs(got[0], ref[0]))
+    print(f"  nn           ICP batch  S=100 N=M={n_main} norm={norm}: equal to plain {ok}, "
+          f"all-sentinel targets give index 0 at a finite distance {gated_ok}")
+    if not ok or not gated_ok:
+        _fail(f"nn disagrees with its plain version (ICP batch, norm {norm})")
+    del x, y, got, ref
+    x, y = _case(rng, 2, 25600, 2048, dev, False)
+    y[:, 1000:1100] = y[:, :100]
+    got, ref = knn.nn_search(x, y, norm), knn._nn_plain(x, y, norm)
+    ok = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    errs["nn"] = max(errs["nn"], _max_abs(got[0], ref[0]))
+    print(f"  nn           carry test S=2 N=25600 M=2048 norm={norm}: equal to plain {ok}")
+    if not ok:
+        _fail(f"nn disagrees with its plain version (carry shape, norm {norm})")
+    del x, y, got, ref
+    x, y = _case(rng, 1, 20000, 20000, dev, True)
+    x[:, 11::37] = y[:, 5:6]                    # one column's minimum in ~540 rows, many tiles
+    got, ref = knn._nn_bidir_acc_cuda(x, y, norm), knn._nn_bidir_plain(x, y, norm)
+    auto = knn.nn_search_bidirectional(x, y, norm)
+    ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+    ok_auto = all(torch.equal(a, b) for a, b in zip(auto, ref))
+    errs["acc"] = max(_max_abs(got[0], ref[0]), _max_abs(got[2], ref[2]))
+    first = int(got[3][0, 5])
+    print(f"  nn_bidir_acc large      S=1 N=M=20000 norm={norm}: equal to plain {ok} (through "
+          f"the dispatch {ok_auto}), tied column takes row {first} (first of the tied rows: 11), "
+          f"any -0.0 {bool(torch.signbit(got[2]).any())}")
+    if not ok or not ok_auto or first != 11 or bool(torch.signbit(got[2]).any()):
+        _fail(f"nn_bidir_acc disagrees with its plain version (20,000 points, norm {norm})")
+    return errs
+
+
+def _check_fps_and_icp(dev) -> None:
+    """Farthest-point sampling's first-index argmax and one batched ICP step
+    (one entry without any inlier) on the card against the CPU."""
+    from autourdf_tpu_torch.ops.fps import farthest_point_sample
+    from autourdf_tpu_torch.ops.icp import icp_point_to_point
+
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-0.3, 0.3, (5000, 3)).astype(np.float32)
+    pts[2500:2700] = pts[:200]                  # duplicated points: equal scores
+    mask = torch.from_numpy(np.arange(5000) >= 9)
+    p = torch.from_numpy(pts)
+    same = torch.equal(farthest_point_sample(p.to(dev), 20, mask.to(dev)).cpu(),
+                       farthest_point_sample(p, 20, mask))
+    src = torch.from_numpy(rng.normal(scale=0.1, size=(4, 3000, 3)).astype(np.float32))
+    tgt = src + torch.tensor([0.01, -0.02, 0.015])
+    tgt[3] += 5.0                               # no inlier within the threshold
+    res = [icp_point_to_point(src.to(d), tgt.to(d), max_iterations=1, threshold=0.5)
+           for d in (dev, torch.device("cpu"))]
+    err = _max_abs(res[0].transform.cpu(), res[1].transform)
+    kept = torch.equal(res[0].transform[3].cpu(), torch.eye(4))
+    print(f"  fps on the card equals the CPU (first index on ties): {same}; one ICP step, card vs "
+          f"CPU: max abs err {err:.3g} (tol {ICP_STEP_ATOL}), no-inlier entry keeps its init {kept}")
+    if not same or not err <= ICP_STEP_ATOL or not kept:
+        _fail("fps or ICP on the card disagrees with the CPU path")
+
+
+def run_main_path(dev, gpu_line: str, root: str) -> dict:
+    """Phase 4: the registration path through its public entry point, into
+    the data root ``root`` (phase 6 builds the URDF from its artifacts)."""
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.ops import knn
     from autourdf_tpu_torch.ops.chamfer import chamfer_distance
     from autourdf_tpu_torch.registration import predicted_world_points
     from autourdf_tpu_torch import workflow
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        os.symlink(os.path.join(REPO, "data_real", "raw"), os.path.join(root, "raw"))
-        cfg = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS)
-        names, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
-        S, T, N, _ = frames.shape
-        ft = torch.from_numpy(frames).to(dev)
-        mt = torch.from_numpy(masks).to(dev)
-        with torch.no_grad():
-            raw = torch.stack([chamfer_distance(ft[:, t], ft[:, t + 1], mt[:, t], mt[:, t + 1])
-                               for t in range(T - 1)], dim=1)
-        raw_mean = float(raw.mean())
+    os.symlink(os.path.join(REPO, "data_real", "raw"), os.path.join(root, "raw"))
+    cfg = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS)
+    names, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
+    S, T, N, _ = frames.shape
+    ft = torch.from_numpy(frames).to(dev)
+    mt = torch.from_numpy(masks).to(dev)
+    with torch.no_grad():
+        raw = torch.stack([chamfer_distance(ft[:, t], ft[:, t + 1], mt[:, t], mt[:, t + 1])
+                           for t in range(T - 1)], dim=1)
+    raw_mean = float(raw.mean())
 
-        knn.reset_launch_counts()
-        torch.cuda.synchronize(dev)
-        t0 = time.time()
-        stats = workflow.run_registration(cfg, seed=0, corr_every=1, device=dev)
-        result = stats.pop("result")
-        with torch.no_grad():
-            last = predicted_world_points(result, T - 1)
-            resid = chamfer_distance(last, ft[:, -1], mt[:, -1], mt[:, -1])
-        torch.cuda.synchronize(dev)
-        wall = time.time() - t0
-        counts = dict(knn.launch_counts)
+    knn.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    stats = workflow.run_registration(cfg, seed=0, corr_every=1, device=dev)
+    result = stats.pop("result")
+    with torch.no_grad():
+        last = predicted_world_points(result, T - 1)
+        resid = chamfer_distance(last, ft[:, -1], mt[:, -1], mt[:, -1])
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    counts = dict(knn.launch_counts)
 
-        missing = [f"{n}/{d}/{t:04}.{ext}" for n in names
-                   for d, ext in (("matrix", "npy"), ("cluster", "npz")) for t in range(T)
-                   if not os.path.exists(os.path.join(cfg.part_dir(), n, d, f"{t:04}.{ext}"))]
+    missing = [f"{n}/{d}/{t:04}.{ext}" for n in names
+               for d, ext in (("matrix", "npy"), ("cluster", "npz")) for t in range(T)
+               if not os.path.exists(os.path.join(cfg.part_dir(), n, d, f"{t:04}.{ext}"))]
 
     losses, step_losses = result.losses, result.step_losses
     anchor_mean = float(losses.mean())
@@ -248,7 +449,164 @@ def run_main_path(dev, gpu_line: str) -> dict:
         _fail(f"nn_bidir launched {counts['nn_bidir']} times, expected {PAIRS * 2 * EPOCHS}")
     if counts["nn_min_bidir"] < 1:
         _fail("nn_min_bidir was not launched on the main path")
-    return {"counts": counts, "n": N, "stats": stats}
+    return {"counts": counts, "n": N, "stats": stats, "cfg": cfg}
+
+
+def run_urdf_stage(dev, cfg) -> dict:
+    """Phase 6 (Path B): structure -> joints -> meshes -> URDF from the
+    artifacts of phase 4, with the known DoF and with the DoF search."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.ops import knn
+
+    knn.reset_launch_counts()
+    for label, kw in (("known DoF", dict(unknown_dof=False)),
+                      ("unknown DoF, no probe", dict(unknown_dof=True, dof_probe=False))):
+        before = knn.launch_counts["nn"]
+        t0 = time.time()
+        out = workflow.run_build_urdf(cfg, refine="none", tree="mst", end_video=5,
+                                      verbose=False, device=dev, **kw)
+        torch.cuda.synchronize(dev)
+        seconds = time.time() - t0
+        launched = knn.launch_counts["nn"] - before
+        robot = ET.parse(out["urdf_path"]).getroot()
+        links, joints = robot.findall("link"), robot.findall("joint")
+        stls = [m.get("filename") for m in robot.iter("mesh")]
+        axes = np.array([[float(v) for v in j.find("axis").get("xyz").split()] for j in joints])
+        print(f"  {label}: {out['num_links']} links, dof {out['dof']}, {len(joints)} joints, "
+              f"{len(set(stls))} meshes, {seconds:.3f} s, nn launches {launched}")
+        if len(links) != out["num_links"] or len(joints) != out["num_links"] - 1:
+            _fail(f"URDF has {len(links)} links and {len(joints)} joints for "
+                  f"{out['num_links']} links ({label})")
+        if out["num_links"] < 2:
+            _fail(f"no articulation found ({label})")
+        bad = [f for f in stls if not (os.path.exists(f) and os.path.getsize(f) > 84)]
+        if bad or len(set(stls)) != out["num_links"]:
+            _fail(f"missing or empty meshes: {bad[:3]} ({label})")
+        if not np.allclose(np.linalg.norm(axes, axis=1), 1.0, atol=1e-6):
+            _fail(f"a joint axis is not a unit vector ({label})")
+        if not np.all(np.isfinite(axes)) or launched < 1:
+            _fail(f"the urdf stage did not go through the nn kernel ({label})")
+    return {"counts": dict(knn.launch_counts)}
+
+
+def _raw_chamfer(dev, frames, masks) -> float:
+    """Mean Chamfer-L1 between consecutive raw frames of every sequence."""
+    from autourdf_tpu_torch.ops.chamfer import chamfer_distance
+
+    ft = torch.from_numpy(frames).to(dev)
+    mt = None if masks is None else torch.from_numpy(masks).to(dev)
+    with torch.no_grad():
+        raw = [chamfer_distance(ft[:, t], ft[:, t + 1],
+                                None if mt is None else mt[:, t],
+                                None if mt is None else mt[:, t + 1])
+               for t in range(ft.shape[1] - 1)]
+    return float(torch.stack(raw).mean())
+
+
+def run_icp_path(dev, root: str) -> dict:
+    """Phase 7 (Path A): register --mlp_icp --normal --seed-mode fps on the
+    first 2 sequences x 4 frames of the real scans, at full width."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.config import PipelineConfig
+    from autourdf_tpu_torch.ops import knn
+
+    S, T = 2, 4
+    src = os.path.join(REPO, "data_real", "raw", "wx200_real_5")
+    for seq in sorted(os.listdir(src))[:S]:
+        os.makedirs(os.path.join(root, "raw", "wx200_real_5", seq))
+        for frame in sorted(os.listdir(os.path.join(src, seq)))[:T]:
+            os.symlink(os.path.join(src, seq, frame),
+                       os.path.join(root, "raw", "wx200_real_5", seq, frame))
+    cfg = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS,
+                         num_videos=S, seed_mode="fps")
+    _, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), S)
+    raw_mean = _raw_chamfer(dev, frames, masks)
+    knn.reset_launch_counts()
+    stats = workflow.run_registration(cfg, seed=0, mlp_icp=True, use_normals=True, device=dev)
+    torch.cuda.synchronize(dev)
+    counts = dict(knn.launch_counts)
+    result = stats.pop("result")
+    print(f"  {frames.shape[0]} sequences x {frames.shape[1]} frames x {frames.shape[2]} points, "
+          f"K={cfg.num_segments()}, hidden 512, {EPOCHS} epochs, mlp_icp, normals, FPS seeds: "
+          f"{stats['seconds']:.3f} s; mean raw Chamfer {raw_mean:.6f}, mean loss "
+          f"{stats['mean_loss']:.6f}")
+    print(f"  launches: {counts} (ICP: {T - 1} pairs x {ICP_ITERATIONS} iterations, one launch "
+          f"for the whole batch of {S} x {cfg.num_segments()} clusters)")
+    if frames.shape[:2] != (S, T):
+        _fail(f"expected {S} sequences x {T} frames, got {frames.shape[:2]}")
+    if counts["nn"] != (T - 1) * ICP_ITERATIONS:
+        _fail(f"nn launched {counts['nn']} times, expected {(T - 1) * ICP_ITERATIONS}")
+    if counts["nn_bidir"] != (T - 1) * EPOCHS:
+        _fail(f"nn_bidir launched {counts['nn_bidir']} times, expected {(T - 1) * EPOCHS}")
+    if not (torch.isfinite(result.matrices).all() and stats["mean_loss"] < raw_mean):
+        _fail(f"mean loss {stats['mean_loss']} not below raw Chamfer {raw_mean}")
+    return {"counts": counts, "seconds": stats["seconds"]}
+
+
+def articulated_chain_frames(num_frames: int, n: int, seed: int = 0) -> np.ndarray:
+    """``(T, n, 3)`` clouds of a 3-link hinged chain: a base box, an arm
+    turning about z at the base's end, a forearm turning about y at the
+    arm's end.  Every frame samples the three surfaces anew (as a scanner
+    would), so even the static base differs between frames."""
+    rng = np.random.default_rng(seed)
+    boxes = [(np.array([-0.25, 0.0, 0.0]), np.array([0.25, 0.08, 0.06])),
+             (np.array([0.2, 0.0, 0.0]), np.array([0.2, 0.04, 0.04])),
+             (np.array([0.15, 0.0, 0.0]), np.array([0.15, 0.03, 0.03]))]
+    share = np.array([0.5, 0.3, 0.2])
+    counts = np.floor(share * n).astype(int)
+    counts[0] += n - counts.sum()
+
+    def rot(axis, a):
+        c, s = np.cos(a), np.sin(a)
+        return (np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) if axis == 2
+                else np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]))
+
+    def surface(center, half, k):
+        pts = rng.uniform(-1, 1, (k, 3))
+        face = rng.integers(0, 3, k)
+        pts[np.arange(k), face] = np.sign(pts[np.arange(k), face])
+        return center + pts * half
+
+    frames = []
+    for t in range(num_frames):
+        r1, r2 = rot(2, 0.15 * t), rot(1, -0.2 * t)
+        base = surface(*boxes[0], counts[0])
+        arm = surface(*boxes[1], counts[1]) @ r1.T
+        fore = (surface(*boxes[2], counts[2]) @ r2.T + [0.4, 0.0, 0.0]) @ r1.T
+        frames.append(np.concatenate([base, arm, fore]) + rng.normal(0, 5e-4, (n, 3)))
+    return np.stack(frames).astype(np.float32)
+
+
+def run_large_cloud_path(dev, root: str) -> dict:
+    """Phase 8: one sequence of 3 frames at 20,000 points per frame through
+    the registration entry point: every search takes the accumulator kernel."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.config import PipelineConfig
+    from autourdf_tpu_torch.io.ply import write_ply
+    from autourdf_tpu_torch.ops import knn
+
+    T = 3
+    cfg = PipelineConfig(robot="wx200_5", data_root=root, rot="q", epochs=EPOCHS, num_videos=1)
+    frames = articulated_chain_frames(T, LARGE_N)
+    for t in range(T):
+        write_ply(os.path.join(cfg.raw_dir(), "V0000", f"{t:04}", "robot.ply"), frames[t])
+    raw_mean = _raw_chamfer(dev, frames[None], None)
+    knn.reset_launch_counts()
+    stats = workflow.run_registration(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    counts = dict(knn.launch_counts)
+    result = stats.pop("result")
+    expected = (T - 1) * 2 * EPOCHS
+    print(f"  1 sequence x {T} frames x {LARGE_N} points (synthetic 3-link chain), "
+          f"K={cfg.num_segments()}, hidden 512, {EPOCHS} epochs: {stats['seconds']:.3f} s; mean raw "
+          f"Chamfer {raw_mean:.6f}, mean step-phase loss {stats['mean_step_loss']:.6f}, mean "
+          f"anchor-phase loss {stats['mean_loss']:.6f}")
+    print(f"  launches: {counts}")
+    if counts["nn_bidir_acc"] != expected or counts["nn_bidir"] != 0:
+        _fail(f"expected {expected} accumulator launches and no per-tile launch, got {counts}")
+    if not (torch.isfinite(result.losses).all() and stats["mean_loss"] < raw_mean):
+        _fail(f"mean anchor loss {stats['mean_loss']} not below raw Chamfer {raw_mean}")
+    return {"counts": counts, "seconds": stats["seconds"]}
 
 
 def profile_epochs(dev, n: int, epochs: int = 20) -> None:
@@ -320,22 +678,40 @@ def main() -> int:
     print("[3] kernels against their plain versions")
     timing = check_kernels(dev, frames.shape[2])
 
-    print("[4] main path: workflow.run_registration on data_real/raw/wx200_real_5")
-    main_path = run_main_path(dev, gpu_line)
-    print("[4b] where an epoch's time goes")
-    profile_epochs(dev, main_path["n"])
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        roots = {k: os.path.join(tmp, k) for k in ("main", "icp", "large")}
+        for r in roots.values():
+            os.makedirs(r)
+        print("[4] main path: workflow.run_registration on data_real/raw/wx200_real_5")
+        paths["register"] = main_path = run_main_path(dev, gpu_line, roots["main"])
+        print("[4b] where an epoch's time goes")
+        profile_epochs(dev, main_path["n"])
+        print("[6] path B: workflow.run_build_urdf(refine='none', tree='mst') on the artifacts "
+              "of [4]")
+        paths["urdf"] = run_urdf_stage(dev, main_path["cfg"])
+        print("[7] path A: workflow.run_registration(mlp_icp=True, use_normals=True), FPS seeds")
+        paths["register_icp"] = run_icp_path(dev, roots["icp"])
+        print("[8] large clouds: workflow.run_registration at 20,000 points per frame")
+        paths["register_large"] = run_large_cloud_path(dev, roots["large"])
 
-    sources = {"nn_bidir": ("autourdf_tpu/ops/knn.py:149"),
-               "nn_min_bidir": ("autourdf_tpu/ops/knn.py:313")}
+    sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
+               "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",
+               "nn": "autourdf_tpu/ops/knn.py:54",
+               "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233"}
     kernels = []
     for kname, t in timing.items():
+        by_path = {pname: p["counts"][kname] for pname, p in paths.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": "autourdf_tpu_torch/csrc/knn.cu",
-            "replaces": sources[kname], "launches": main_path["counts"][kname],
+            "replaces": sources[kname], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "shape": t["shape"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+        if kernels[-1]["launches"] < 1:
+            _fail(f"kernel {kname} was launched on no path")
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "library_ms")):
             _fail(f"non-finite measurement for {k['name']}")

@@ -1,6 +1,7 @@
 """The port stands alone: no file of autourdf_tpu_torch/, nor chip_smoke.py,
-imports jax, flax or the JAX package, and importing every module of the
-port loads none of them."""
+imports jax, flax or the JAX package, nor scikit-learn, networkx or
+matplotlib (absent from the machine with the card), and importing every
+module of the port loads none of them."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "autourdf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "autourdf_tpu", "sklearn", "networkx", "matplotlib")
 
 
 def _port_files():

@@ -206,5 +206,9 @@ def test_kmeans_plusplus_seeds_and_fps_not_ported():
     assert np.all(d.min(1) == 0) and len(np.unique(d.argmin(1))) == 6
     res = kmeans(gen, torch.from_numpy(pts), 6, iters=8, mask=torch.from_numpy(mask))
     assert res.centers.shape == (6, 3) and torch.isfinite(res.inertia)
-    with pytest.raises(NotImplementedError, match="ops/fps.py"):
-        kmeans(gen, torch.from_numpy(pts), 6, seed_mode="fps")
+    # farthest-point seeding is ported: deterministic, whatever the generator
+    fps = [kmeans(torch.Generator().manual_seed(s), torch.from_numpy(pts), 6, iters=8,
+                  mask=torch.from_numpy(mask), seed_mode="fps") for s in (0, 1)]
+    assert torch.equal(fps[0].labels, fps[1].labels) and torch.isfinite(fps[0].inertia)
+    with pytest.raises(ValueError, match="seed_mode"):
+        kmeans(gen, torch.from_numpy(pts), 6, seed_mode="grid")
