@@ -20,6 +20,8 @@ the differentiable loss by gathering the matched neighbours.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Literal
 
 import torch
@@ -36,17 +38,52 @@ PAD_COORD = 1e6
 # kernel and nowhere else, so a run can show the main path went through it.
 launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0}
 
-# nn_search_bidirectional takes the accumulator kernel when the per-tile
-# kernel's (S, tiles, M) column scratch (8 bytes an entry) would exceed this
-# many bytes.  On an H100 the accumulator was the faster of the two at both
-# shapes timed (device time 0.089 against 0.118 ms at S=5, N=M=4,988 with
-# 31 MB of scratch; 0.236 against 0.378 ms at S=1, N=M=20,000 with 100 MB;
-# chip_smoke.py, PERF.md), so everything above the production shape of the
-# registration goes to it.  That shape itself (5 sequences of up to 5,000
-# points, 31.4 MB) stays on the per-tile kernel: there the search is 1% of a
-# host-bound epoch, and moving the main path is left to a change that
-# measures it end to end.
-ACC_SCRATCH_BYTES = 32 * 1024 * 1024
+# Block constants of the indexed sweep in csrc/knn.cu (bidir_sweep), mirrored
+# here so that the planning below runs without the library: rows come in
+# register sub-tiles of SWEEP_SUB_ROWS, a thread holds SWEEP_GROUP_COLS
+# columns, a block runs at most SWEEP_MAX_THREADS threads at 128 registers
+# each and may opt into SHARED_LIMIT bytes of dynamic shared memory.
+SWEEP_SUB_ROWS = 32
+SWEEP_GROUP_COLS = 4
+SWEEP_MAX_THREADS = 512
+SHARED_LIMIT = 232_448
+# An SM has 228 KB of shared memory, of which every resident block reserves
+# 1 KB, and 65,536 registers: 512 resident threads of the sweep.
+_SM_SHARED_BYTES = 233_472
+_BLOCK_RESERVED_BYTES = 1024
+_SM_RESIDENT_THREADS = 512
+# The accumulator kernel cuts y into chunks of at most this many columns
+# (8 bytes of shared memory a column), so four blocks stay resident per SM
+# whatever M is.  Chunks of 2,500 columns were the fastest of 2,500, 5,000
+# and 10,000 at S=1, N=M=20,000 (0.168, 0.171 and 0.177 ms of kernel time at
+# their best rows and threads; H100 80GB HBM3, 700 W,
+# scripts/torch_knn_tune.py).
+ACC_CHUNK_COLS = 2560
+# Planning weights: the fixed work of a block (loading its rows, the column
+# flush) costs about as much as _FLUSH_ROWS more rows, and an SM needs
+# _SATURATING_WARPS resident warps to keep its schedulers busy (12 and 16
+# warps an SM read the same time on the H100, 4 read 1.3 times as much;
+# scripts/torch_knn_tune.py).
+_FLUSH_ROWS = 2
+_SATURATING_WARPS = 12
+_SWEEP_THREADS = (128, 256, 512)
+_SWEEP_MAX_ROWS = 256
+
+# nn_search_bidirectional takes the per-tile kernel where it takes the shape
+# and its (S, blocks, M) column scratch (8 bytes an entry) stays within this
+# many bytes, a third of the H100's L2, so that the fold reads the partials
+# from the cache they were written to; everything else goes to the
+# accumulator, which needs no scratch and whose thousands of small blocks do
+# not depend on how N divides by the SM count.  In device time of the whole
+# wrapper the per-tile kernel is ahead where both fit (H100 80GB HBM3, 700 W,
+# chip_smoke.py [3], per-tile / accumulator: 0.056 / 0.066 ms at S=5,
+# N=M=4,988 and 0.156 / 0.168 ms at S=1, N=M=20,000), but at large M it runs
+# one 512-thread block an SM and its time swings with the grid (0.148 ms with
+# 125 blocks on 132 SMs, 0.234 ms with 157; scripts/torch_knn_tune.py).  So
+# the registration's production shape (5 sequences of up to 5,000 points,
+# 10.4 MB of scratch) stays on the per-tile kernel, and one 20,000-point pair
+# (20 MB) goes to the accumulator.
+ACC_SCRATCH_BYTES = 16 * 1024 * 1024
 
 
 def reset_launch_counts() -> None:
@@ -124,31 +161,183 @@ def _nn_min_bidir_plain(x, y, norm: int, chunk: int = 1024):
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _nn_bidir_cuda(x, y, norm: int):
-    """Replaces _nn_bidir_kernel (autourdf_tpu/ops/knn.py:149).  Bound on the
-    H100 by fp32 ALU work (~9 ops per pair over S*N*M pairs) plus the
-    (S, tiles, M) column-partial traffic; see csrc/knn.cu for the design."""
-    x, y = _check_cuda(x, y)
+@dataclass(frozen=True)
+class SweepPlan:
+    """How one launch of an indexed kernel cuts the work: a block owns
+    ``rows`` x rows and ``cols`` y columns and runs ``threads`` threads."""
+    kernel: str                     # "nn_bidir" or "nn_bidir_acc"
+    rows: int
+    cols: int
+    threads: int
+    grid: tuple[int, int, int]      # (row blocks, column chunks, S)
+    shared_bytes: int               # dynamic shared memory of a block
+    resident: int                   # blocks an SM can hold at once
+    scratch_bytes: int              # partials (per-tile) or words (accumulator)
+    sms: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def blocks_per_sm(self) -> float:
+        return self.blocks / self.sms
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / (self.sms * self.resident)
+
+
+def sweep_shared_bytes(rows: int, cols: int, threads: int) -> int:
+    """Dynamic shared memory of a sweep block (csrc/knn.cu
+    sweep_shared_bytes): the x rows, the cross-warp row fold and, when the
+    block has more than one sub-tile, 8 bytes of column state per slot."""
+    span = threads * SWEEP_GROUP_COLS
+    slots = 0 if rows <= SWEEP_SUB_ROWS else -(-cols // span) * span
+    return rows * 16 + (threads // 32) * SWEEP_SUB_ROWS * 8 + slots * 8
+
+
+def _resident_blocks(shared_bytes: int, threads: int) -> int:
+    return min(_SM_RESIDENT_THREADS // threads,
+               _SM_SHARED_BYTES // (shared_bytes + _BLOCK_RESERVED_BYTES))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bidir(S: int, N: int, M: int, sms: int, kernel: str) -> SweepPlan | None:
+    """Rows per block, columns per chunk and threads per block for one
+    launch of ``kernel`` on a card with ``sms`` SMs; None when the per-tile
+    kernel does not take the shape (its 8 * M bytes of column state do not
+    fit a block).
+
+    Candidates are the multiples of SWEEP_SUB_ROWS rows up to 256 at 128,
+    256 and 512 threads.  The busiest SM runs ceil(blocks / sms) blocks; a
+    block does (rows + _FLUSH_ROWS) x (column passes of its threads) x
+    threads units of work (a pass covers threads x SWEEP_GROUP_COLS columns,
+    so a ragged last pass is paid in full), slowed where fewer than
+    _SATURATING_WARPS warps are resident; the cheapest candidate wins, then
+    the larger block (less scratch, fewer atomics), then fewer threads.
+    """
+    cols = _chunk_cols(M, kernel)
+    # the per-tile kernel always meets its column side over at least two
+    # sub-tiles (when x has them), so its scratch never falls back to one
+    # partial per 32 rows
+    first = 2 * SWEEP_SUB_ROWS if kernel == "nn_bidir" and N > SWEEP_SUB_ROWS else SWEEP_SUB_ROWS
+    best = None
+    for threads in _SWEEP_THREADS:
+        for rows in range(first, _SWEEP_MAX_ROWS + 1, SWEEP_SUB_ROWS):
+            plan = make_plan(S, N, M, sms, kernel, rows, cols, threads)
+            if plan is None:
+                continue
+            busiest = -(-plan.blocks // sms)
+            warps = min(plan.resident, busiest) * threads // 32
+            passes = -(-min(cols, M) // (threads * SWEEP_GROUP_COLS))
+            cost = (busiest * (min(rows, N) + _FLUSH_ROWS) * passes * threads
+                    * max(1.0, _SATURATING_WARPS / warps))
+            key = (cost, -rows, threads)
+            if best is None or key < best[0]:
+                best = (key, plan)
+            if rows >= N:
+                break
+    return None if best is None else best[1]
+
+
+def _chunk_cols(M: int, kernel: str) -> int:
+    """Columns of y a block takes: all of them in the per-tile kernel, an
+    even share of at most ACC_CHUNK_COLS in the accumulator."""
+    if kernel == "nn_bidir":
+        return M
+    if kernel != "nn_bidir_acc":
+        raise ValueError(f"unknown kernel {kernel!r}")
+    chunks = -(-M // ACC_CHUNK_COLS)
+    return -(-(-(-M // chunks)) // SWEEP_GROUP_COLS) * SWEEP_GROUP_COLS
+
+
+def make_plan(S: int, N: int, M: int, sms: int, kernel: str, rows: int, cols: int,
+              threads: int) -> SweepPlan | None:
+    """The plan with these block parameters, or None where the kernel does
+    not take them (what csrc/knn.cu sweep_params_ok refuses)."""
+    shared = sweep_shared_bytes(rows, cols, threads)
+    if (rows <= 0 or rows % SWEEP_SUB_ROWS or threads < 32 or threads % 32
+            or threads > SWEEP_MAX_THREADS or cols <= 0 or shared > SHARED_LIMIT
+            or (kernel == "nn_bidir" and cols != M)):
+        return None
+    row_blocks, chunks = -(-N // rows), -(-M // cols)
+    scratch = S * row_blocks * M * 8 if kernel == "nn_bidir" else S * (N + M) * 8
+    return SweepPlan(kernel, rows, cols, threads, (row_blocks, chunks, S), shared,
+                     _resident_blocks(shared, threads), scratch, sms)
+
+
+def pick_bidir_plan(S: int, N: int, M: int, sms: int) -> SweepPlan:
+    """The dispatch rule of nn_search_bidirectional: the per-tile kernel
+    where it takes the shape and needs at most ACC_SCRATCH_BYTES of scratch,
+    else the accumulator (which takes every shape)."""
+    tile = plan_bidir(S, N, M, sms, "nn_bidir")
+    if tile is not None and tile.scratch_bytes <= ACC_SCRATCH_BYTES:
+        return tile
+    return plan_bidir(S, N, M, sms, "nn_bidir_acc")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _launch_sweep(x, y, norm: int, plan: SweepPlan):
+    """Allocate outputs and scratch, launch ``plan.kernel`` with the plan's
+    block parameters (one call into the library: the sweep and its fold, or
+    the fill, the sweep and the unpack) and count the launch."""
     lib = _cuda.library("knn")
     S, N, M = x.shape[0], x.shape[1], y.shape[1]
-    tiles = -(-N // lib.knn_tile_rows())
-    dx = torch.empty((S, N), dtype=torch.float32, device=x.device)
-    ix = torch.empty((S, N), dtype=torch.int64, device=x.device)
-    cmin = torch.empty((S, tiles, M), dtype=torch.float32, device=x.device)
-    carg = torch.empty((S, tiles, M), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.knn_bidir_launch(x.data_ptr(), y.data_ptr(), S, N, M, norm,
-                                   dx.data_ptr(), ix.data_ptr(), cmin.data_ptr(),
-                                   carg.data_ptr(), _stream(x))
-    _cuda.check(err, "knn_bidir_launch")
-    launch_counts["nn_bidir"] += 1
-    dy, iy = _fold_column_tiles(cmin, carg)
+    dev = x.device
+    dx = torch.empty((S, N), dtype=torch.float32, device=dev)
+    ix = torch.empty((S, N), dtype=torch.int64, device=dev)
+    dy = torch.empty((S, M), dtype=torch.float32, device=dev)
+    iy = torch.empty((S, M), dtype=torch.int64, device=dev)
+    scratch = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=dev)
+    if plan.kernel == "nn_bidir":
+        fn, block = lib.knn_bidir_launch, (plan.rows, plan.threads)
+        tail = (scratch.data_ptr(), _stream(x))
+    else:
+        fn, block = lib.knn_bidir_acc_launch, (plan.rows, plan.cols, plan.threads)
+        tail = (scratch.data_ptr(), _ACC_INIT, _stream(x))
+    args = (x.data_ptr(), y.data_ptr(), S, N, M, norm, *block, dx.data_ptr(), ix.data_ptr(),
+            dy.data_ptr(), iy.data_ptr(), *tail)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:                           # the launch goes to the tensors' device
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    _cuda.check(err, f"knn launch of {plan.kernel}")
+    launch_counts[plan.kernel] += 1
     return dx, ix, dy, iy
 
 
+def _nn_bidir_cuda(x, y, norm: int):
+    """Replaces _nn_bidir_kernel (autourdf_tpu/ops/knn.py:149).  Bound on the
+    H100 by the rate of unfused fp32 instructions (an L1 distance has
+    no multiply-add to fuse), so the design cuts the instructions per pair:
+    grouped minima with a deferred argmin, and the column side met once per
+    block of ``rows`` x rows in shared memory.  No atomics: the blocks'
+    (S, blocks, M) column partials are folded first-block-first by a second
+    small kernel.  Raises for a shape whose 8 * M bytes of column state do
+    not fit a block; see csrc/knn.cu for the design."""
+    x, y = _check_cuda(x, y)
+    S, N, M = x.shape[0], x.shape[1], y.shape[1]
+    plan = plan_bidir(S, N, M, _sm_count(_device_index(x)), "nn_bidir")
+    if plan is None:
+        raise ValueError(f"the per-tile kernel holds 8 * M bytes of column state in shared "
+                         f"memory and does not take M = {M}; use the accumulator kernel")
+    return _launch_sweep(x, y, norm, plan)
+
+
 def _fold_column_tiles(cmin: torch.Tensor, carg: torch.Tensor):
-    """Fold per-tile column partials ``(S, tiles, M)`` into the y -> x
-    direction, first tile on ties (the TPU fold at knn.py:226-230)."""
+    """Plain version of fold_partials_kernel: fold per-block column partials
+    ``(S, blocks, M)`` into the y -> x direction, first block on ties (the
+    TPU fold at knn.py:226-230)."""
     tile_pick = torch.argmin(cmin, dim=1, keepdim=True)     # (S, 1, M)
     dy = torch.gather(cmin, 1, tile_pick)[:, 0]
     iy = torch.gather(carg, 1, tile_pick)[:, 0].long()
@@ -189,46 +378,39 @@ def _nn_cuda(x, y, norm: int):
     return dx, ix
 
 
-# (bits of +inf) << 32 | INT_MAX: above every (distance, row) word
+# (bits of +inf) << 32 | INT_MAX: above every (distance, index) word
 _ACC_INIT = (0x7F800000 << 32) | 0x7FFFFFFF
 
 
 def _nn_bidir_acc_cuda(x, y, norm: int):
-    """Replaces _nn_bidir_acc_kernel (autourdf_tpu/ops/knn.py:233).  Bound on
-    the H100 by fp32 ALU work (~9 ops per pair); the column (min, argmin)
-    meet in one 64-bit atomicMin word per y point instead of the per-tile
-    kernel's (S, tiles, M) scratch."""
+    """Replaces _nn_bidir_acc_kernel (autourdf_tpu/ops/knn.py:233).  The same
+    sweep as the per-tile kernel, bound by the same unfused fp32 rate,
+    with no scratch beyond one 64-bit word per point: (distance bits,
+    index), merged with atomicMin, so first-index ties are exact in any
+    block order.  A block reads a column's word once and resolves and merges
+    only when its minimum can still lower or tie it; y is cut into column
+    chunks across blocks, so every M is taken, and the row side meets
+    through the same kind of word.  A last small kernel unpacks the words."""
     x, y = _check_cuda(x, y)
-    lib = _cuda.library("knn")
     S, N, M = x.shape[0], x.shape[1], y.shape[1]
-    dx = torch.empty((S, N), dtype=torch.float32, device=x.device)
-    ix = torch.empty((S, N), dtype=torch.int64, device=x.device)
-    packed = torch.full((S, M), _ACC_INIT, dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.knn_bidir_acc_launch(x.data_ptr(), y.data_ptr(), S, N, M, norm,
-                                       dx.data_ptr(), ix.data_ptr(), packed.data_ptr(),
-                                       _stream(x))
-    _cuda.check(err, "knn_bidir_acc_launch")
-    launch_counts["nn_bidir_acc"] += 1
-    dy, iy = _unpack_columns(packed)
-    return dx, ix, dy, iy
+    return _launch_sweep(x, y, norm,
+                         plan_bidir(S, N, M, _sm_count(_device_index(x)), "nn_bidir_acc"))
 
 
 def _unpack_columns(packed: torch.Tensor):
-    """(S, M) int64 words, distance bits high and x row low -> (dy, iy)."""
+    """Plain version of unpack_words_kernel: int64 words, distance bits high
+    and index low -> (distance, index)."""
     dy = (packed >> 32).to(torch.int32).view(torch.float32)
     iy = packed & 0xFFFFFFFF
     return dy, iy
 
 
 def _nn_bidir_auto_cuda(x, y, norm: int):
-    """The per-tile kernel while its column scratch is small, the
-    accumulator kernel above ACC_SCRATCH_BYTES (the counterpart of the
-    _bidir_vmem_ok dispatch at autourdf_tpu/ops/knn.py:429-444)."""
-    tiles = -(-x.shape[1] // _cuda.library("knn").knn_tile_rows())
-    if x.shape[0] * tiles * y.shape[1] * 8 > ACC_SCRATCH_BYTES:
-        return _nn_bidir_acc_cuda(x, y, norm)
-    return _nn_bidir_cuda(x, y, norm)
+    """The kernel pick_bidir_plan chooses for the shape (the counterpart of
+    the _bidir_vmem_ok dispatch at autourdf_tpu/ops/knn.py:429-444)."""
+    x, y = _check_cuda(x, y)
+    plan = pick_bidir_plan(x.shape[0], x.shape[1], y.shape[1], _sm_count(_device_index(x)))
+    return _launch_sweep(x, y, norm, plan)
 
 
 def _dispatch(x, y, norm, cuda_fn, plain_fn):

@@ -7,16 +7,23 @@ Phases, each of which fails the run on error:
 
 1. print the device and ``nvidia-smi``'s name and power limit;
 2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (nvcc, sm_90a);
+   print ptxas' registers (a spill fails the run) and the SASS instruction
+   count of the indexed sweep's inner loop;
 3. hold every kernel against its plain PyTorch version on the card (exact
    distances and indices) at the production shape with masked rows and
    forced ties, at a ragged shape and at the main path's shape, the
    one-directional search also at the ICP batch and the carry-test shapes
    and with all-sentinel targets, the accumulator kernel also against the
-   per-tile kernel and at 20,000 points; check the Chamfer value and
+   per-tile kernel and at 20,000 points, both indexed kernels on cases built
+   to break their grouped minima (ties across register groups, sub-tiles,
+   blocks and column chunks, ragged edges, the largest M the per-tile kernel
+   takes and the first it does not) under planned and forced block shapes;
+   check the Chamfer value and
    gradients, farthest-point sampling and one ICP step against the plain
    path on the CPU; time each kernel, its plain version and one library
-   call, beside the bound, and the per-tile and accumulator kernels side by
-   side at both sizes (the dispatch constant of ops/knn.py);
+   call, beside the bound and the floor of unfused fp32 work, and the
+   per-tile and accumulator kernels side by side at both sizes, wrapper time
+   and device time (the dispatch rule of ops/knn.py);
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
@@ -59,6 +66,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # per (x, y) pair: 3 subtracts, 3 absolute values, 2 adds, 1 compare
 OPS_PER_PAIR = 9
+# The fp32 peak counts a fused multiply-add as two operations; an L1 distance
+# has none to fuse (and the build passes -fmad=false), so its instructions
+# run at half the peak: the floor of unfused fp32 work, beside the bound.
+UNFUSED_FP32_OPS = PEAK_FP32_FLOPS / 2
 # Chamfer value and gradient, kernel path on the card vs the plain path on
 # the CPU: the same matched neighbours (exact indices), but sums in another
 # order (and index_add_ atomics on the card) move the last bits.
@@ -91,10 +102,9 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: the summed time of every device
-    kernel it launches (torch.profiler), whatever the host takes to launch
-    them."""
+def _device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
+    """Device time of one call of ``fn`` by device kernel (torch.profiler),
+    whatever the host takes to launch them: name -> ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -103,8 +113,69 @@ def _device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    # mean time of a launch times the launches a call makes: the profiler may
+    # drop events of a long window, which a plain total / reps would count as
+    # time saved
+    return {e.key: (getattr(e, "self_device_time_total", 0.0) / 1e3 / e.count
+                    * max(1, round(e.count / reps)))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0}
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed time of every device
+    kernel it launches."""
+    return sum(_device_ms_by_kernel(fn, reps).values())
+
+
+def _sweep_ms(by_kernel: dict[str, float]) -> float:
+    """Of a wrapper's device kernels, the time of the search kernel alone
+    (not the fill, the fold or the unpack beside it)."""
+    return sum(ms for name, ms in by_kernel.items() if "nn_bidir" in name)
+
+
+def sass_inner_loop(so_path: str, kernel: str, dump_to: str | None = None) -> dict | None:
+    """Instruction counts of ``kernel``'s inner loop in the built library,
+    from ``cuobjdump -sass``: the shortest loop (backward branch) that holds
+    at least half of the function's FADDs.  The body of the sweep's loop is
+    one column pass of a sub-tile, SWEEP_SUB_ROWS x SWEEP_GROUP_COLS pairs,
+    plus the column flush that only a block's last sub-tile runs.  Writes the
+    function's SASS to ``dump_to`` if given.  None where cuobjdump is
+    missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    for chunk in text.split("Function : ")[1:]:
+        if kernel not in chunk.splitlines()[0]:
+            continue
+        if dump_to:
+            os.makedirs(os.path.dirname(dump_to), exist_ok=True)
+            with open(dump_to, "w") as f:
+                f.write(chunk)
+        ins = [(int(a, 16), op.split(".")[0], rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", chunk)]
+        fadds = sum(op == "FADD" for _, op, _ in ins)
+        best = None
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if target is None or int(target.group(1), 16) >= addr:
+                continue
+            body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+            if 2 * body.count("FADD") >= fadds and (best is None or len(body) < len(best)):
+                best = body
+        if best is None:
+            return None
+        counts = {}
+        for op in best:
+            counts[op] = counts.get(op, 0) + 1
+        return {"total": len(best), "function_total": len(ins),
+                "by_opcode": dict(sorted(counts.items(), key=lambda kv: -kv[1]))}
+    return None
 
 
 def _bound_ms(S: int, N: int, M: int, out_bytes_per_point: int,
@@ -117,6 +188,11 @@ def _bound_ms(S: int, N: int, M: int, out_bytes_per_point: int,
               + S * (N + (M if both_directions else 0)) * out_bytes_per_point)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _unfused_floor_ms(S: int, N: int, M: int) -> float:
+    """The bound's operations at the rate of unfused fp32 instructions."""
+    return 1e3 * S * N * M * OPS_PER_PAIR / UNFUSED_FP32_OPS
 
 
 def _case(rng, S, N, M, dev, masked_ties: bool):
@@ -212,6 +288,7 @@ def check_kernels(dev, n_main: int) -> dict:
             _fail(f"chamfer_distance on the card disagrees with the plain path ({label})")
 
     out["extra"] = {n: _check_new_kernel_shapes(dev, n_main, n) for n in (1, 2)}
+    out["design"] = {n: _check_sweep_design(dev, n) for n in (1, 2)}
     _check_fps_and_icp(dev)
 
     # times at the main path's shape, norm 1 (the Chamfer-L1 loss)
@@ -229,17 +306,20 @@ def check_kernels(dev, n_main: int) -> dict:
     timing = {
         "nn_bidir": dict(
             ms=_time_ms(lambda: knn.nn_search_bidirectional(x, y, 1)),
+            device_ms=_device_ms(lambda: knn.nn_search_bidirectional(x, y, 1)),
             plain_ms=_time_ms(lambda: knn._nn_bidir_plain(x, y, 1), reps=5),
             library_ms=_time_ms(lib_bidir, reps=5),
             bound=_bound_ms(S, N, M, 4 + 8)),
         "nn_min_bidir": dict(
             ms=_time_ms(lambda: knn.nn_min_bidirectional(x, y, 1)),
+            device_ms=_device_ms(lambda: knn.nn_min_bidirectional(x, y, 1)),
             plain_ms=_time_ms(lambda: knn._nn_min_bidir_plain(x, y, 1), reps=5),
             library_ms=_time_ms(lib_min, reps=5),
             bound=_bound_ms(S, N, M, 4)),
     }
     for name, t in timing.items():
         t["shape"] = f"S={S} N=M={N} norm=1"
+        t["unfused_floor_ms"] = _unfused_floor_ms(S, N, M)
     per_tile_small = timing["nn_bidir"]["ms"]
     del x, y
 
@@ -252,6 +332,8 @@ def check_kernels(dev, n_main: int) -> dict:
 
     timing["nn"] = dict(
         ms=_time_ms(lambda: knn.nn_search(xb, yb, 2)),
+        device_ms=_device_ms(lambda: knn.nn_search(xb, yb, 2), reps=5),
+        unfused_floor_ms=_unfused_floor_ms(100, n_main, n_main),
         plain_ms=_time_ms(lambda: knn._nn_plain(xb, yb, 2), reps=3, warm=1),
         library_ms=_time_ms(lib_nn, reps=3, warm=1),
         bound=_bound_ms(100, n_main, n_main, 4 + 8, both_directions=False),
@@ -268,7 +350,7 @@ def check_kernels(dev, n_main: int) -> dict:
     del xc, yc
 
     # the accumulator kernel at the large-cloud shape, and both indexed
-    # kernels side by side at both sizes: what ACC_SCRATCH_BYTES rests on
+    # kernels side by side at both sizes: what the dispatch rule rests on
     xs, ys = _case(np.random.default_rng(1), 5, n_main, n_main, dev, True)
     xl, yl = _case(np.random.default_rng(5), 1, 20000, 20000, dev, True)
 
@@ -278,42 +360,65 @@ def check_kernels(dev, n_main: int) -> dict:
 
     timing["nn_bidir_acc"] = dict(
         ms=_time_ms(lambda: knn._nn_bidir_acc_cuda(xl, yl, 1)),
+        device_ms=_device_ms(lambda: knn._nn_bidir_acc_cuda(xl, yl, 1)),
         plain_ms=_time_ms(lambda: knn._nn_bidir_plain(xl, yl, 1), reps=5),
         library_ms=_time_ms(lib_big, reps=5),
         bound=_bound_ms(1, 20000, 20000, 4 + 8),
+        unfused_floor_ms=_unfused_floor_ms(1, 20000, 20000),
         shape="S=1 N=M=20000 norm=1")
-    tile_rows = _cuda_tile_rows()
-    for shape, (xa, ya) in ((f"S=5 N=M={n_main}", (xs, ys)), ("S=1 N=M=20000", (xl, yl))):
+    library = {5: timing["nn_bidir"]["library_ms"], 1: timing["nn_bidir_acc"]["library_ms"]}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    faster = {}
+    for xa, ya in ((xs, ys), (xl, yl)):
+        Sa, Na, Ma = xa.shape[0], xa.shape[1], ya.shape[1]
+        shape = f"S={Sa} N=M={Na}"
+        fns = {"nn_bidir": knn._nn_bidir_cuda, "nn_bidir_acc": knn._nn_bidir_acc_cuda}
         # wrapper time in turns (per-tile, accumulator, accumulator, per-tile),
-        # then the device time of each wrapper's kernels alone
-        wall = [_time_ms(lambda f=f: f(xa, ya, 1)) for f in
-                (knn._nn_bidir_cuda, knn._nn_bidir_acc_cuda, knn._nn_bidir_acc_cuda,
-                 knn._nn_bidir_cuda)]
-        dev_tile = _device_ms(lambda: knn._nn_bidir_cuda(xa, ya, 1))
-        dev_acc = _device_ms(lambda: knn._nn_bidir_acc_cuda(xa, ya, 1))
-        scratch = xa.shape[0] * -(-xa.shape[1] // tile_rows) * ya.shape[1] * 8
-        picks = "accumulator" if scratch > knn.ACC_SCRATCH_BYTES else "per-tile"
+        # then the device time of each wrapper's kernels and of the search
+        # kernel alone
+        order = ("nn_bidir", "nn_bidir_acc", "nn_bidir_acc", "nn_bidir")
+        wall = [_time_ms(lambda f=fns[k]: f(xa, ya, 1)) for k in order]
+        by = {k: _device_ms_by_kernel(lambda f=f: f(xa, ya, 1)) for k, f in fns.items()}
+        bound, floor = _bound_ms(Sa, Na, Ma, 4 + 8)[0], _unfused_floor_ms(Sa, Na, Ma)
+        for k, w in (("nn_bidir", (wall[0], wall[3])), ("nn_bidir_acc", (wall[1], wall[2]))):
+            plan = knn.plan_bidir(Sa, Na, Ma, sms, k)
+            print(f"  {k:12s} {shape} norm=1: wrapper {w[0]:.4f} / {w[1]:.4f} ms; device time "
+                  f"kernel alone {_sweep_ms(by[k]):.4f} ms, whole wrapper "
+                  f"{sum(by[k].values()):.4f} ms ({len(by[k])} device kernels); bound "
+                  f"{bound:.4f} ms, unfused floor {floor:.4f} ms, library "
+                  f"{library[Sa]:.4f} ms")
+            print(f"    plan: {plan.rows} rows x {plan.cols} columns a block, {plan.threads} "
+                  f"threads, grid {plan.grid} = {plan.blocks} blocks, "
+                  f"{plan.blocks_per_sm:.2f} a SM on {sms} SMs, {plan.resident} resident a SM, "
+                  f"{plan.waves:.2f} waves, {plan.shared_bytes} bytes of shared memory, "
+                  f"{plan.scratch_bytes / 1e6:.1f} MB of scratch")
+        dev_tile, dev_acc = sum(by["nn_bidir"].values()), sum(by["nn_bidir_acc"].values())
+        picks = knn.pick_bidir_plan(Sa, Na, Ma, sms)
+        faster[shape] = "per-tile" if dev_tile <= dev_acc else "accumulator"
         print(f"  per-tile vs accumulator {shape} norm=1: wrapper per-tile {wall[0]:.4f} / "
               f"{wall[3]:.4f} ms, accumulator {wall[1]:.4f} / {wall[2]:.4f} ms; device time "
-              f"per-tile {dev_tile:.4f} ms, accumulator {dev_acc:.4f} ms; column scratch "
-              f"{scratch / 1e6:.1f} MB, dispatch takes the {picks} kernel "
-              f"(ACC_SCRATCH_BYTES = {knn.ACC_SCRATCH_BYTES / 1e6:.1f} MB)")
+              f"per-tile {dev_tile:.4f} ms, accumulator {dev_acc:.4f} ms "
+              f"({dev_acc / dev_tile:.3f} of per-tile); dispatch takes the "
+              f"{'per-tile' if picks.kernel == 'nn_bidir' else 'accumulator'} kernel")
+        if Sa == 5:
+            timing["nn_bidir"]["kernel_device_ms"] = _sweep_ms(by["nn_bidir"])
+        else:
+            timing["nn_bidir_acc"]["kernel_device_ms"] = _sweep_ms(by["nn_bidir_acc"])
+    print(f"  dispatch rule (ops/knn.py pick_bidir_plan): the per-tile kernel where it takes the "
+          f"shape (8 * M bytes of column state fit a block) and its scratch is at most "
+          f"ACC_SCRATCH_BYTES = {knn.ACC_SCRATCH_BYTES / 1e6:.1f} MB, else the accumulator; "
+          f"faster in device time in this run: {faster}")
     print(f"  (indexed wrapper at S=5 also measured above in this run: {per_tile_small:.4f} ms)")
 
     keys = {"nn_bidir": "bidir", "nn_min_bidir": "min", "nn": "nn", "nn_bidir_acc": "acc"}
     for name, t in timing.items():
-        print(f"  time {name:12s} {t['shape']}: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, library (cdist+min) {t['library_ms']:.4f} ms, "
-              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+        print(f"  time {name:12s} {t['shape']}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library (cdist+min) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+              f"unfused floor {t['unfused_floor_ms']:.4f} ms")
         t["max_abs_err"] = max(v[n][keys[name]] for v in out.values() for n in (1, 2)
                                if keys[name] in v[n])
     return timing
-
-
-def _cuda_tile_rows() -> int:
-    from autourdf_tpu_torch.ops import _cuda
-
-    return _cuda.library("knn").knn_tile_rows()
 
 
 def _check_new_kernel_shapes(dev, n_main: int, norm: int) -> dict:
@@ -358,6 +463,97 @@ def _check_new_kernel_shapes(dev, n_main: int, norm: int) -> dict:
           f"any -0.0 {bool(torch.signbit(got[2]).any())}")
     if not ok or not ok_auto or first != 11 or bool(torch.signbit(got[2]).any()):
         _fail(f"nn_bidir_acc disagrees with its plain version (20,000 points, norm {norm})")
+    return errs
+
+
+def tie_layout_clouds(rng, S: int, N: int, M: int):
+    """Clouds built to break the indexed sweep's grouped minima: x rows equal
+    to a y point (zero distances) and copied to rows 1, 2, 5, 33, 70, ...
+    further on, so that a column's minimum is reached in one register group,
+    in several groups of a sub-tile, in several sub-tiles of a block and in
+    several blocks, whatever the rows per block; the y point copied to
+    columns 1, 3, 4, 9, 130, ... further on, so that a row's minimum is
+    reached in one thread's group, in several threads, in several passes and
+    in several column chunks.  Row 11 and every 37th after it are one more
+    y point: one column whose minimum many blocks reach."""
+    x = rng.uniform(-0.3, 0.3, (S, N, 3)).astype(np.float32)
+    y = rng.uniform(-0.3, 0.3, (S, M, 3)).astype(np.float32)
+    if M > 5:
+        x[:, 11::37] = y[:, 5:6]
+    for b, j in ((0, 0), (38, 6), (130, 65), (N // 2 + 1, M // 2 + 3), (N - 2, M - 2)):
+        if not (0 <= b < N and 0 <= j < M):
+            continue
+        x[:, b] = y[:, j]
+        for off in (1, 2, 5, 33, 70, 131, 259, 1027, 2051):
+            if b + off < N:
+                x[:, b + off] = x[:, b]
+        for off in (1, 3, 4, 9, 130, 515, 1030, 2052, 2499, 2600):
+            if j + off < M:
+                y[:, j + off] = y[:, j]
+    return x, y
+
+
+def _check_sweep_design(dev, norm: int) -> dict:
+    """Cases built against the indexed sweep's design, for both kernels, each
+    under the planned block shape and under forced ones (one sub-tile a block,
+    many sub-tiles, many threads, narrow column chunks): exact against the
+    plain version, hence equal to each other."""
+    from autourdf_tpu_torch.ops import knn
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(20 + norm)
+    cases = []
+    for label, S, N, M in (("ties ragged", 2, 4989, 4987), ("ties small", 3, 130, 67),
+                           ("ties S=1", 1, 300, 257), ("ties S=100", 100, 300, 257)):
+        cases.append((label, *tie_layout_clouds(rng, S, N, M)))
+    xz = rng.uniform(-0.3, 0.3, (2, 700, 3)).astype(np.float32)
+    cases.append(("all-sentinel y", xz, np.full((2, 333, 3), knn.PAD_COORD, np.float32)))
+    errs = {"bidir": 0.0, "acc": 0.0}
+    for label, xn, yn in cases:
+        x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+        S, N, M = x.shape[0], x.shape[1], y.shape[1]
+        ref = knn._nn_bidir_plain(x, y, norm)
+        forced = [("nn_bidir", 64, M, 128), ("nn_bidir", 256, M, 512), ("nn_bidir", 32, M, 256),
+                  ("nn_bidir_acc", 32, 256, 128), ("nn_bidir_acc", 96, 1024, 256),
+                  ("nn_bidir_acc", 160, 2560, 128)]
+        plans = [knn.plan_bidir(S, N, M, sms, k) for k in ("nn_bidir", "nn_bidir_acc")]
+        plans += [knn.make_plan(S, N, M, sms, *f) for f in forced]
+        ok = True
+        for plan in plans:
+            got = knn._launch_sweep(x, y, norm, plan)
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            key = "bidir" if plan.kernel == "nn_bidir" else "acc"
+            errs[key] = max(errs[key], _max_abs(got[0], ref[0]), _max_abs(got[2], ref[2]))
+            if not same or bool(torch.signbit(got[2]).any()) or bool(torch.signbit(got[0]).any()):
+                ok = False
+                print(f"    MISMATCH {label} norm={norm} under {plan}")
+        print(f"  sweep design {label:14s} S={S} N={N} M={M} norm={norm}: both kernels under "
+              f"{len(plans)} block shapes equal to plain {ok}")
+        if not ok:
+            _fail(f"an indexed kernel disagrees with its plain version ({label}, norm {norm})")
+
+    # the largest M the per-tile kernel takes, and the first it does not:
+    # that one goes to the accumulator by the planning rule
+    m_max = max(m for m in range(28000, 29500) if knn.plan_bidir(1, 100, m, sms, "nn_bidir"))
+    for M in (m_max, m_max + 1):
+        xn, yn = tie_layout_clouds(rng, 1, 100, M)
+        x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+        ref = knn._nn_bidir_plain(x, y, norm)
+        before = dict(knn.launch_counts)
+        got = knn.nn_search_bidirectional(x, y, norm)
+        took = [k for k in ("nn_bidir", "nn_bidir_acc") if knn.launch_counts[k] > before[k]]
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        refused = False
+        try:
+            direct = knn._nn_bidir_cuda(x, y, norm)
+            same = same and all(torch.equal(a, b) for a, b in zip(direct, ref))
+        except ValueError:
+            refused = True
+        print(f"  per-tile limit S=1 N=100 M={M} norm={norm}: dispatch took {took}, equal to "
+              f"plain {same}, per-tile wrapper refuses the shape {refused}")
+        want = (["nn_bidir"], False) if M == m_max else (["nn_bidir_acc"], True)
+        if not same or (took, refused) != want:
+            _fail(f"per-tile limit: M={M} took {took}, refused {refused} (norm {norm})")
     return errs
 
 
@@ -670,8 +866,23 @@ def main() -> int:
 
     t0 = time.time()
     _cuda.library("knn")
-    print(f"[2] built csrc/knn.cu in {time.time() - t0:.1f} s; ptxas:\n"
-          + _cuda.build_logs.get("knn", "(cached)").strip())
+    log = _cuda.build_logs.get("knn", "(cached)").strip()
+    print(f"[2] built csrc/knn.cu in {time.time() - t0:.1f} s; ptxas:\n{log}")
+    spills = [ln.strip() for ln in log.splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    if spills:
+        _fail(f"a kernel spills registers: {spills[:2]}")
+    from autourdf_tpu_torch.ops.knn import SWEEP_GROUP_COLS, SWEEP_SUB_ROWS
+
+    pairs = SWEEP_SUB_ROWS * SWEEP_GROUP_COLS
+    for kname in ("nn_bidir_kernelILi1E", "nn_bidir_acc_kernelILi1E"):
+        sass = sass_inner_loop(_cuda.build("knn"), kname)
+        if sass is None:
+            print(f"  SASS of {kname}: cuobjdump not found, not counted")
+            continue
+        print(f"  SASS inner loop of {kname} (one column pass of a sub-tile, {pairs} pairs, with "
+              f"the last sub-tile's column flush): {sass['total']} instructions = "
+              f"{sass['total'] / pairs:.2f} a pair; {sass['by_opcode']}")
 
     cfg = PipelineConfig(robot="wx200_real_5", data_root=os.path.join(REPO, "data_real"))
     _, frames, _ = workflow.load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
@@ -706,14 +917,17 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": "autourdf_tpu_torch/csrc/knn.cu",
             "replaces": sources[kname], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "shape": t["shape"],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
+            "kernel_device_ms": t.get("kernel_device_ms"),
+            "unfused_floor_ms": t["unfused_floor_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
         if kernels[-1]["launches"] < 1:
             _fail(f"kernel {kname} was launched on no path")
     for k in kernels:
-        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        if not all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "library_ms")):
             _fail(f"non-finite measurement for {k['name']}")
     print(f"[5] card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))

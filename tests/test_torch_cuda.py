@@ -157,3 +157,106 @@ def test_fps_and_icp_on_card_match_cpu(cuda):
     # the same correspondences; the 3x3 SVD and sums differ in the last bits
     torch.testing.assert_close(out[0].transform.cpu(), out[1].transform, rtol=0, atol=1e-5)
     assert torch.equal(out[0].transform[2].cpu(), torch.eye(4))
+
+
+# --- the indexed sweep's design: ties across groups, sub-tiles, blocks, chunks ---
+
+def _tie_clouds(S, N, M, dev, values=None):
+    """An x row equal to a y point and copied 1, 2, 5, 33, 70, ... rows
+    further on (one register group, several groups, sub-tiles, blocks); the y
+    point copied 1, 3, 4, 9, 130, ... columns further on (one thread's group,
+    several threads, passes, chunks); one y point reached by every 37th row."""
+    rng = np.random.default_rng(7 * N + M)
+    if values is None:
+        x = rng.uniform(-0.3, 0.3, (S, N, 3))
+        y = rng.uniform(-0.3, 0.3, (S, M, 3))
+    else:
+        x, y = rng.choice(values, (S, N, 3)), rng.choice(values, (S, M, 3))
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    if M > 5:
+        x[:, 11::37] = y[:, 5:6]
+    for b, j in ((0, 0), (38, 6), (130, 65), (N // 2 + 1, M // 2 + 3), (N - 2, M - 2)):
+        if not (0 <= b < N and 0 <= j < M):
+            continue
+        x[:, b] = y[:, j]
+        for off in (1, 2, 5, 33, 70, 131, 259, 1027, 2051):
+            if b + off < N:
+                x[:, b + off] = x[:, b]
+        for off in (1, 3, 4, 9, 130, 515, 1030, 2052, 2499, 2600):
+            if j + off < M:
+                y[:, j + off] = y[:, j]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# forced block shapes: (kernel, rows, cols (None: all of y), threads)
+FORCED = [("nn_bidir", 32, None, 128), ("nn_bidir", 64, None, 128), ("nn_bidir", 256, None, 512),
+          ("nn_bidir_acc", 32, 256, 128), ("nn_bidir_acc", 96, 1024, 256),
+          ("nn_bidir_acc", 160, 2560, 128)]
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("shape", [(2, 4989, 4987), (3, 130, 67), (1, 300, 257), (100, 300, 257),
+                                   (1, 67, 5200)])
+def test_indexed_kernels_tie_layouts_and_ragged_shapes_on_card(cuda, shape, norm):
+    S, N, M = shape
+    x, y = _tie_clouds(S, N, M, cuda)
+    ref = knn._nn_bidir_plain(x, y, norm)
+    plans = [knn.plan_bidir(S, N, M, _sms(cuda), k) for k in ("nn_bidir", "nn_bidir_acc")]
+    plans += [knn.make_plan(S, N, M, _sms(cuda), k, r, c or M, t) for k, r, c, t in FORCED]
+    for plan in plans:
+        got = knn._launch_sweep(x, y, norm, plan)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), plan
+        assert not bool(torch.signbit(got[0]).any() or torch.signbit(got[2]).any())
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+def test_indexed_kernels_with_ties_everywhere_on_card(cuda, norm):
+    # coordinates from a three-value set: almost every minimum is tied
+    x, y = _tie_clouds(3, 700, 333, cuda, values=np.array([0.0, 0.5, 1.0]))
+    ref = knn._nn_bidir_plain(x, y, norm)
+    for fn in (knn._nn_bidir_cuda, knn._nn_bidir_acc_cuda):
+        for _ in range(3):
+            for a, b in zip(fn(x, y, norm), ref):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+def test_indexed_kernels_zero_distances_and_all_sentinel_targets_on_card(cuda, norm):
+    x, y = _clouds(2, 700, 333, False, cuda)
+    x[:, 100:300] = y[:, 50:250]                # x rows equal to y points
+    sentinel = torch.full_like(y, knn.PAD_COORD)
+    for fn in (knn._nn_bidir_cuda, knn._nn_bidir_acc_cuda):
+        for target in (y, sentinel):
+            got, ref = fn(x, target, norm), knn._nn_bidir_plain(x, target, norm)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+    assert int(knn._nn_bidir_cuda(x, sentinel, norm)[1].abs().max()) == 0
+
+
+def test_per_tile_kernel_limit_goes_to_the_accumulator_by_rule_on_card(cuda):
+    sms = _sms(cuda)
+    largest = max(m for m in range(28000, 29500) if knn.plan_bidir(1, 100, m, sms, "nn_bidir"))
+    for M, kernel in ((largest, "nn_bidir"), (largest + 1, "nn_bidir_acc")):
+        x, y = _tie_clouds(1, 100, M, cuda)
+        before = dict(knn.launch_counts)
+        got = knn.nn_search_bidirectional(x, y, 1)
+        assert knn.launch_counts[kernel] == before[kernel] + 1
+        for a, b in zip(got, knn._nn_bidir_plain(x, y, 1)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        knn._nn_bidir_cuda(x, y, 1)             # 8 * M bytes of column state do not fit
+
+
+def test_planned_shared_memory_matches_the_library_on_card(cuda):
+    from autourdf_tpu_torch.ops import _cuda
+
+    lib = _cuda.library("knn")
+    for rows, cols, threads in ((32, 4988, 128), (64, 4988, 128), (96, 4988, 256),
+                                (160, 20000, 512), (64, 2500, 128), (64, 28672, 256)):
+        assert lib.knn_sweep_shared_bytes(rows, cols, threads) == \
+            knn.sweep_shared_bytes(rows, cols, threads)
