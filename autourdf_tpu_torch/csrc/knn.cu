@@ -662,6 +662,14 @@ extern "C" int knn_sweep_shared_bytes(int rows, int cols, int threads) {
   return sweep_shared_bytes(rows, cols, threads);
 }
 
+// The sweep's block constants, which ops/knn.py mirrors for its planning:
+// 0 kSubRows, 1 kGroupRows, 2 kGroupCols, 3 kSweepMaxThreads, 4 kSharedLimit;
+// -1 for any other number.
+extern "C" int knn_sweep_constant(int which) {
+  constexpr int values[] = {kSubRows, kGroupRows, kGroupCols, kSweepMaxThreads, kSharedLimit};
+  return which >= 0 && which < 5 ? values[which] : -1;
+}
+
 // x (S, N, 3), y (S, M, 3) -> dx (S, N) f32, ix (S, N) i64, dy (S, M) f32,
 // iy (S, M) i64.  A block owns `rows` x rows (a multiple of 32) and runs
 // `threads` threads; scratch holds 2 * S * blocks * M 32-bit words, blocks =

@@ -36,6 +36,7 @@ _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 _SIGNATURES = {
     "knn": {
         "knn_sweep_shared_bytes": ([_I, _I, _I], _I),
+        "knn_sweep_constant": ([_I], _I),
         "knn_bidir_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
         "knn_min_bidir_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
         "knn_nn_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),

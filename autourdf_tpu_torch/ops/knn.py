@@ -40,10 +40,14 @@ launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0}
 
 # Block constants of the indexed sweep in csrc/knn.cu (bidir_sweep), mirrored
 # here so that the planning below runs without the library: rows come in
-# register sub-tiles of SWEEP_SUB_ROWS, a thread holds SWEEP_GROUP_COLS
-# columns, a block runs at most SWEEP_MAX_THREADS threads at 128 registers
-# each and may opt into SHARED_LIMIT bytes of dynamic shared memory.
+# register sub-tiles of SWEEP_SUB_ROWS, the column side groups
+# SWEEP_GROUP_ROWS rows, a thread holds SWEEP_GROUP_COLS columns, a block
+# runs at most SWEEP_MAX_THREADS threads at 128 registers each and may opt
+# into SHARED_LIMIT bytes of dynamic shared memory.  The library gives its
+# own values (knn_sweep_constant); tests/test_torch_cuda.py holds these to
+# them on the card.
 SWEEP_SUB_ROWS = 32
+SWEEP_GROUP_ROWS = 4
 SWEEP_GROUP_COLS = 4
 SWEEP_MAX_THREADS = 512
 SHARED_LIMIT = 232_448
@@ -71,18 +75,20 @@ _SWEEP_MAX_ROWS = 256
 
 # nn_search_bidirectional takes the per-tile kernel where it takes the shape
 # and its (S, blocks, M) column scratch (8 bytes an entry) stays within this
-# many bytes, a third of the H100's L2, so that the fold reads the partials
-# from the cache they were written to; everything else goes to the
-# accumulator, which needs no scratch and whose thousands of small blocks do
-# not depend on how N divides by the SM count.  In device time of the whole
-# wrapper the per-tile kernel is ahead where both fit (H100 80GB HBM3, 700 W,
-# chip_smoke.py [3], per-tile / accumulator: 0.056 / 0.066 ms at S=5,
-# N=M=4,988 and 0.156 / 0.168 ms at S=1, N=M=20,000), but at large M it runs
-# one 512-thread block an SM and its time swings with the grid (0.148 ms with
-# 125 blocks on 132 SMs, 0.234 ms with 157; scripts/torch_knn_tune.py).  So
-# the registration's production shape (5 sequences of up to 5,000 points,
-# 10.4 MB of scratch) stays on the per-tile kernel, and one 20,000-point pair
-# (20 MB) goes to the accumulator.
+# many bytes; everything else goes to the accumulator, which needs no
+# scratch.  The threshold is not a tuned one: it is set between the
+# registration's production shape (5 sequences of up to 5,000 points, 10.4 MB
+# of scratch) and one 20,000-point pair (20 MB), so that large clouds keep
+# running the accumulator and both kernels stay on a real path.  Device time
+# alone would put it above 20 MB: the per-tile kernel's whole wrapper is ahead
+# at both shapes (H100 80GB HBM3, 700 W, chip_smoke.py [3], per-tile /
+# accumulator: 0.056 / 0.066 ms at S=5, N=M=4,988 and 0.156 / 0.168 ms at S=1,
+# N=M=20,000), and its fold of 20 MB of partials was not measured slower for
+# exceeding any cache budget.  What speaks for the accumulator at large M is
+# evenness, not speed: there the per-tile kernel runs one 512-thread block an
+# SM and its time swings with the grid (0.148 ms with 125 blocks on 132 SMs,
+# 0.234 ms with 157; scripts/torch_knn_tune.py), where the accumulator's
+# thousands of small blocks do not depend on how N divides by the SM count.
 ACC_SCRATCH_BYTES = 16 * 1024 * 1024
 
 
@@ -216,12 +222,19 @@ def plan_bidir(S: int, N: int, M: int, sms: int, kernel: str) -> SweepPlan | Non
     so a ragged last pass is paid in full), slowed where fewer than
     _SATURATING_WARPS warps are resident; the cheapest candidate wins, then
     the larger block (less scratch, fewer atomics), then fewer threads.
+
+    The weights are fitted to two swept shapes (S=5, N=M=4,988 and S=1,
+    N=M=20,000), not derived.  Swept also at S=2, N=M=4,988 and at the
+    ragged S=5, N=4,418, M=4,985, the plan's wrapper device time over the
+    best swept is 1.00-1.01 for the accumulator and 1.01, 1.00, 1.13 and
+    1.05 for the per-tile kernel (H100 80GB HBM3, 700 W,
+    scripts/torch_knn_tune.py; PERF.md).
     """
     cols = _chunk_cols(M, kernel)
-    # the per-tile kernel always meets its column side over at least two
-    # sub-tiles (when x has them), so its scratch never falls back to one
+    # a block always meets its column side over at least two sub-tiles (when
+    # x has them), so neither the scratch nor the atomics fall back to one
     # partial per 32 rows
-    first = 2 * SWEEP_SUB_ROWS if kernel == "nn_bidir" and N > SWEEP_SUB_ROWS else SWEEP_SUB_ROWS
+    first = 2 * SWEEP_SUB_ROWS if N > SWEEP_SUB_ROWS else SWEEP_SUB_ROWS
     best = None
     for threads in _SWEEP_THREADS:
         for rows in range(first, _SWEEP_MAX_ROWS + 1, SWEEP_SUB_ROWS):
@@ -387,10 +400,12 @@ def _nn_bidir_acc_cuda(x, y, norm: int):
     sweep as the per-tile kernel, bound by the same unfused fp32 rate,
     with no scratch beyond one 64-bit word per point: (distance bits,
     index), merged with atomicMin, so first-index ties are exact in any
-    block order.  A block reads a column's word once and resolves and merges
-    only when its minimum can still lower or tie it; y is cut into column
-    chunks across blocks, so every M is taken, and the row side meets
-    through the same kind of word.  A last small kernel unpacks the words."""
+    block order.  A block reads a column's word once and merges only when
+    its (minimum, first row of the winning group) can still lower it; y is
+    cut into column chunks across blocks, so every M is taken, and the row
+    side meets through the same kind of word.  The column side's exact row
+    is resolved after the blocks have met, by the last small kernel
+    (unpack_words_kernel), which also unpacks the words."""
     x, y = _check_cuda(x, y)
     S, N, M = x.shape[0], x.shape[1], y.shape[1]
     return _launch_sweep(x, y, norm,

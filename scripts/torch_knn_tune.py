@@ -8,9 +8,11 @@ Builds the kernels, prints ptxas' registers and the SASS counts of the
 sweep's inner loop, checks both kernels exactly against the plain version
 for every block shape it times, and prints the device time (torch.profiler)
 of the search kernel alone and of the whole wrapper for rows per block x
-threads per block at the registration's shape (S=5, N=M=4988, norm 1) and
-the large-cloud shape (S=1, N=M=20000), beside what ops/knn.py plan_bidir
-picks.  Needs one NVIDIA GPU.
+threads per block at the registration's shape (S=5, N=M=4988, norm 1), the
+large-cloud shape (S=1, N=M=20000), the ICP path's batch (S=2, N=M=4988) and
+a ragged pair (S=5, N=4418, M=4985), beside what ops/knn.py plan_bidir
+picks; for every shape and kernel it prints the plan's time over the best
+swept.  Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write the measurements here as JSON")
     ap.add_argument("--chunk-cols", type=int, nargs="*", default=[2560, 5120, 10240])
     ap.add_argument("--threads", type=int, nargs="*", default=[128, 256, 512])
-    ap.add_argument("--rows", type=int, nargs="*", default=[32, 64, 96, 128, 160, 192, 256])
+    ap.add_argument("--rows", type=int, nargs="*", default=[32, 64, 96, 128, 160, 192, 224, 256])
     ap.add_argument("--sass", default=None, help="write the L1 per-tile kernel's SASS here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -66,38 +68,53 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"SM clock, its maximum and the power draw under 3,000 queued searches: {clocks}")
     rows_out = []
-    for S, N, M in ((5, 4988, 4988), (1, 20000, 20000)):
-        x, y = chip_smoke._case(np.random.default_rng(1), S, N, M, dev, True)
+    # the registration's shape, the large clouds, the two-sequence batch of
+    # the ICP path and a ragged pair (N != M, neither a multiple of a block)
+    shapes = ((5, 4988, 4988), (1, 20000, 20000), (2, 4988, 4988), (5, 4418, 4985))
+    for si, (S, N, M) in enumerate(shapes):
+        x, y = chip_smoke._case(np.random.default_rng(1), S, N, M, dev, si < 2)
         ref = knn._nn_bidir_plain(x, y, 1)
         for kernel in ("nn_bidir", "nn_bidir_acc"):
             picked = knn.plan_bidir(S, N, M, sms, kernel)
-            print(f"{kernel} S={S} N=M={N}: plan_bidir picks {picked}")
-            col_choices = [M] if kernel == "nn_bidir" else sorted(
-                {knn._chunk_cols(M, kernel)} | {-(-M // -(-M // c)) + 3 & ~3 for c in args.chunk_cols})
-            for cols in col_choices:
-                for threads in args.threads:
-                    for rows in args.rows:
-                        plan = knn.make_plan(S, N, M, sms, kernel, rows, cols, threads)
-                        if plan is None:
-                            continue
-                        got = knn._launch_sweep(x, y, 1, plan)
-                        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
-                        by = chip_smoke._device_ms_by_kernel(
-                            lambda: knn._launch_sweep(x, y, 1, plan), reps=10)
-                        rec = {"kernel": kernel, "S": S, "N": N, "M": M, "rows": rows,
-                               "cols": cols, "threads": threads, "blocks": plan.blocks,
-                               "resident": plan.resident, "shared_bytes": plan.shared_bytes,
-                               "exact": exact, "sweep_ms": chip_smoke._sweep_ms(by),
-                               "wrapper_device_ms": sum(by.values()), "card": gpu_line}
-                        rows_out.append(rec)
-                        print(f"  rows {rows:3d} cols {cols:5d} threads {threads:3d} blocks "
-                              f"{plan.blocks:5d} ({plan.blocks / sms:6.2f}/SM, resident "
-                              f"{plan.resident}) shared {plan.shared_bytes:6d}: sweep "
-                              f"{rec['sweep_ms']:.4f} ms, wrapper device "
-                              f"{rec['wrapper_device_ms']:.4f} ms, exact {exact}"
-                              + ("   <- plan" if plan == picked else ""))
-                        if not exact:
-                            return 1
+            print(f"{kernel} S={S} N={N} M={M}: plan_bidir picks {picked}")
+            # chunk widths are swept at the first two shapes only
+            chunk_cols = args.chunk_cols if kernel == "nn_bidir_acc" and si < 2 else []
+            col_choices = sorted({knn._chunk_cols(M, kernel)}
+                                 | {-(-M // -(-M // c)) + 3 & ~3 for c in chunk_cols})
+            blocks = {(cols, threads, rows) for cols in col_choices for threads in args.threads
+                      for rows in args.rows} | {(picked.cols, picked.threads, picked.rows)}
+            timed = []
+            for cols, threads, rows in sorted(blocks):
+                plan = knn.make_plan(S, N, M, sms, kernel, rows, cols, threads)
+                if plan is None:
+                    continue
+                got = knn._launch_sweep(x, y, 1, plan)
+                exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+                by = chip_smoke._device_ms_by_kernel(
+                    lambda: knn._launch_sweep(x, y, 1, plan), reps=10)
+                rec = {"kernel": kernel, "S": S, "N": N, "M": M, "rows": rows,
+                       "cols": cols, "threads": threads, "blocks": plan.blocks,
+                       "resident": plan.resident, "shared_bytes": plan.shared_bytes,
+                       "exact": exact, "sweep_ms": chip_smoke._sweep_ms(by),
+                       "wrapper_device_ms": sum(by.values()), "card": gpu_line,
+                       "planned": plan == picked}
+                rows_out.append(rec)
+                timed.append(rec)
+                print(f"  rows {rows:3d} cols {cols:5d} threads {threads:3d} blocks "
+                      f"{plan.blocks:5d} ({plan.blocks / sms:6.2f}/SM, resident "
+                      f"{plan.resident}) shared {plan.shared_bytes:6d}: sweep "
+                      f"{rec['sweep_ms']:.4f} ms, wrapper device "
+                      f"{rec['wrapper_device_ms']:.4f} ms, exact {exact}"
+                      + ("   <- plan" if plan == picked else ""))
+                if not exact:
+                    return 1
+            mine = next(r for r in timed if r["planned"])
+            best = min(timed, key=lambda r: r["wrapper_device_ms"])
+            print(f"  plan against best, {kernel} S={S} N={N} M={M}: plan "
+                  f"{mine['wrapper_device_ms']:.4f} ms (rows {mine['rows']}, cols {mine['cols']}, "
+                  f"threads {mine['threads']}), best {best['wrapper_device_ms']:.4f} ms (rows "
+                  f"{best['rows']}, cols {best['cols']}, threads {best['threads']}), plan / best "
+                  f"{mine['wrapper_device_ms'] / best['wrapper_device_ms']:.3f}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows_out, f, indent=1)

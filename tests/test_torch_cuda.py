@@ -260,3 +260,13 @@ def test_planned_shared_memory_matches_the_library_on_card(cuda):
                                 (160, 20000, 512), (64, 2500, 128), (64, 28672, 256)):
         assert lib.knn_sweep_shared_bytes(rows, cols, threads) == \
             knn.sweep_shared_bytes(rows, cols, threads)
+
+
+def test_planning_constants_match_the_library_on_card(cuda):
+    from autourdf_tpu_torch.ops import _cuda
+
+    lib = _cuda.library("knn")
+    mirrored = (knn.SWEEP_SUB_ROWS, knn.SWEEP_GROUP_ROWS, knn.SWEEP_GROUP_COLS,
+                knn.SWEEP_MAX_THREADS, knn.SHARED_LIMIT)
+    assert tuple(lib.knn_sweep_constant(k) for k in range(5)) == mirrored
+    assert lib.knn_sweep_constant(5) == -1
