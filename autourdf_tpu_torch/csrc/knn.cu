@@ -92,20 +92,54 @@
 //     (ops/knn.py plan_bidir), which picks them from S, N, M and the SM
 //     count so that the grid fills the card evenly.
 //
-// The other two kernels
-// ---------------------
-// nn_kernel and nn_min_bidir_kernel keep their first design: a block owns
-// kTileRows x rows in shared memory, its kThreads threads sweep all of y,
-// thread t taking columns t, t + kThreads, ... in ascending order with a
-// per-pair update of a (min, argmin) register pair per tile row, folded by
-// warp shuffles and shared memory over (d, idx) pairs, lower index on ties.
-// nn_kernel is the one-directional search (ICP correspondences, the carry
-// test): row side only, no scratch; it serves both a batch of 100 clouds of
-// 5,000 points and one query set of 25,600 points against 2,048.  The
-// min-only kernel needs no indices: min is order-free, so its cross-block
-// column minimum is an atomicMin on the int bits of the non-negative fp32
-// distance.  Both are bound by the same unfused fp32 rate, about 8 to
-// 9 operations per pair.
+// The one-directional and the min-only search (nn_kernel, nn_min_bidir_kernel)
+// ---------------------------------------------------------------------------
+// Both are a second sweep, light_sweep, which keeps what the indexed sweep
+// does on its row side and drops what they do not need.
+//
+// What bounds them: the same rate of unfused fp32 instructions.  At norm 2
+// the distance is 3 subtracts, 3 multiplies and 2 adds, 8 instructions a
+// pair, none of them fused (bit parity), so the card's fp32 peak, which
+// counts a fused multiply-add as two operations, stays a factor of two away
+// before any bookkeeping, and every minimum, compare or select on top costs
+// a scheduler more than an add does (PERF.md).  The design cuts those.
+//
+//   - Three-input minima.  A distance is never NaN, negative or -0.0, so it
+//     orders as the signed integer of its bits, and sm_90's three-input
+//     integer minimum (VIMNMX3) folds two values into a running minimum in
+//     one instruction where FMNMX takes two.  The results are the same bits.
+//   - nn_kernel (x -> y only: ICP correspondences, the carry test) is the
+//     row side of the indexed sweep alone: a thread holds kGroupCols
+//     consecutive y columns in registers, one shared load of an x row serves
+//     them all, one VIMNMX3 and one FMNMX reduce the row's 4 distances to the
+//     group's minimum, and a compare and two selects update the running
+//     (minimum, group base column) under strictly-less, groups ascending: 5
+//     instructions a row and group, 1.25 a pair, where the first design
+//     spent 3 a pair.  (Folding the running minimum into the chain, two
+//     VIMNMX3 and one compare and select, is one instruction less and was
+//     slower: 128 registers where this form takes 119 to 122.)  Two REDUX a row
+//     fold the warp, the warps meet in shared memory and one lane a row
+//     recomputes the winning group to find the first column that equals the
+//     minimum.  No column side: no column registers, no column state in
+//     shared memory (16 bytes a row and the fold's buffers are all a block
+//     keeps), no scratch, and y is never cut across blocks, so every M is
+//     taken.  One kernel serves 100 clouds of 5,000 points against 5,000 and
+//     25,600 queries against 2,048: rows and threads come per launch from
+//     ops/knn.py plan_bidir.
+//   - nn_min_bidir_kernel (both directions, minima only) has no index to
+//     defer.  Row side: two VIMNMX3 fold a row's 4 distances into its running
+//     minimum, one REDUX a row folds the warp.  Column side: the rows go two at a time, so one VIMNMX3
+//     folds both into a column's running minimum, which lives in registers
+//     during a pass and in private shared slots (4 bytes a column) between
+//     the block's sub-tiles; a column leaves the block once: one atomicMin
+//     on the fp32 bits a (block, column), sent only when it lowers the word,
+//     where the first design sent one a (32-row tile, column).  One minimum
+//     instruction a pair in all, where the first design had two and a full
+//     shared load.  y is cut into chunks across blocks where its state would
+//     not fit, so the row side merges the same way.  The +inf the words start
+//     from is written by a fill kernel in the same library call.
+//   - The warps' row fold has two buffers, taken in turns, so a sub-tile
+//     costs one barrier and the warps do not wait for warp 0's resolve.
 //
 // Bit-level parity.  The distance keeps the JAX order (knn.py:67-71):
 // |x0-y0| + |x1-y1| + |x2-y2| (or d0*d0 + d1*d1 + d2*d2) summed left to
@@ -122,13 +156,6 @@
 
 namespace {
 
-// x rows per block.  Each thread keeps a (min, argmin) register pair per
-// tile row: at 64 rows the indexed kernel spills (254 registers plus a
-// 568-byte stack, ptxas -v on sm_90a), at 32 it fits with no spill.
-constexpr int kTileRows = 32;
-constexpr int kThreads = 128;   // threads per block
-constexpr int kWarps = kThreads / 32;
-
 template <int NORM>
 __device__ __forceinline__ float pair_dist(const float4 a, float b0, float b1, float b2) {
   const float d0 = __fsub_rn(a.x, b0);
@@ -138,147 +165,6 @@ __device__ __forceinline__ float pair_dist(const float4 a, float b0, float b1, f
     return __fadd_rn(__fadd_rn(fabsf(d0), fabsf(d1)), fabsf(d2));
   }
   return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
-}
-
-// Lexicographic (distance, index) minimum: the lower index wins a tie.
-__device__ __forceinline__ void take_first_min(float& d, int& k, float od, int ok) {
-  if (od < d || (od == d && ok < k)) {
-    d = od;
-    k = ok;
-  }
-}
-
-__device__ __forceinline__ void load_tile(const float* __restrict__ xb, int n, int row0,
-                                          float4* xs) {
-  for (int i = threadIdx.x; i < kTileRows; i += kThreads) {
-    const int r = row0 + i;
-    xs[i] = r < n ? make_float4(xb[3 * r], xb[3 * r + 1], xb[3 * r + 2], 0.f)
-                  : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
-  }
-}
-
-// Row results of a block: fold the per-thread (min, argmin) partials of each
-// tile row over the warp (shuffles) and then over the warps (shared memory),
-// lower column on ties, and write rows below n.
-__device__ __forceinline__ void store_row_results(const float (&rmin)[kTileRows],
-                                                  const int (&ridx)[kTileRows], int row0, int n,
-                                                  float* __restrict__ dx_b,
-                                                  int64_t* __restrict__ ix_b,
-                                                  float (*red_d)[kTileRows],
-                                                  int (*red_i)[kTileRows]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i) {
-    float d = rmin[i];
-    int k = ridx[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_down_sync(0xffffffffu, d, off);
-      const int ok = __shfl_down_sync(0xffffffffu, k, off);
-      take_first_min(d, k, od, ok);
-    }
-    if (lane == 0) {
-      red_d[warp][i] = d;
-      red_i[warp][i] = k;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTileRows; i += kThreads) {
-    float d = red_d[0][i];
-    int k = red_i[0][i];
-    for (int w = 1; w < kWarps; ++w) take_first_min(d, k, red_d[w][i], red_i[w][i]);
-    const int r = row0 + i;
-    if (r < n) {
-      dx_b[r] = d;
-      ix_b[r] = k;
-    }
-  }
-}
-
-template <int NORM>
-__global__ void __launch_bounds__(kThreads)
-nn_min_bidir_kernel(const float* __restrict__ x, const float* __restrict__ y, int n, int m,
-                    float* __restrict__ dx, unsigned int* __restrict__ cmin_bits) {
-  const int s = blockIdx.y;
-  const int row0 = blockIdx.x * kTileRows;
-  const float* yb = y + (size_t)s * m * 3;
-  unsigned int* cbits = cmin_bits + (size_t)s * m;
-
-  __shared__ float4 xs[kTileRows];
-  __shared__ float red_d[kWarps][kTileRows];
-  load_tile(x + (size_t)s * n * 3, n, row0, xs);
-  __syncthreads();
-
-  float rmin[kTileRows];
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i) rmin[i] = CUDART_INF_F;
-
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    const float y0 = yb[3 * j], y1 = yb[3 * j + 1], y2 = yb[3 * j + 2];
-    float cd = CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < kTileRows; ++i) {
-      const float d = pair_dist<NORM>(xs[i], y0, y1, y2);
-      rmin[i] = fminf(rmin[i], d);
-      cd = fminf(cd, d);
-    }
-    // non-negative fp32 orders like its unsigned bit pattern
-    atomicMin(cbits + j, __float_as_uint(cd));
-  }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i) {
-    float d = rmin[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) d = fminf(d, __shfl_down_sync(0xffffffffu, d, off));
-    if (lane == 0) red_d[warp][i] = d;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTileRows; i += kThreads) {
-    float d = red_d[0][i];
-    for (int w = 1; w < kWarps; ++w) d = fminf(d, red_d[w][i]);
-    const int r = row0 + i;
-    if (r < n) dx[(size_t)s * n + r] = d;
-  }
-}
-
-template <int NORM>
-__global__ void __launch_bounds__(kThreads)
-nn_kernel(const float* __restrict__ x, const float* __restrict__ y, int n, int m,
-          float* __restrict__ dx, int64_t* __restrict__ ix) {
-  const int s = blockIdx.y;
-  const int row0 = blockIdx.x * kTileRows;
-  const float* yb = y + (size_t)s * m * 3;
-
-  __shared__ float4 xs[kTileRows];
-  __shared__ float red_d[kWarps][kTileRows];
-  __shared__ int red_i[kWarps][kTileRows];
-  load_tile(x + (size_t)s * n * 3, n, row0, xs);
-  __syncthreads();
-
-  float rmin[kTileRows];
-  int ridx[kTileRows];
-#pragma unroll
-  for (int i = 0; i < kTileRows; ++i) {
-    rmin[i] = CUDART_INF_F;
-    ridx[i] = 0;
-  }
-
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    const float y0 = yb[3 * j], y1 = yb[3 * j + 1], y2 = yb[3 * j + 2];
-#pragma unroll
-    for (int i = 0; i < kTileRows; ++i) {
-      const float d = pair_dist<NORM>(xs[i], y0, y1, y2);
-      if (d < rmin[i]) {
-        rmin[i] = d;
-        ridx[i] = j;
-      }
-    }
-  }
-  store_row_results(rmin, ridx, row0, n, dx + (size_t)s * n, ix + (size_t)s * n, red_d, red_i);
 }
 
 // ---------------------------------------------------------------------------
@@ -296,10 +182,12 @@ __device__ __forceinline__ unsigned long long pack_word(unsigned int dist_bits, 
   return ((unsigned long long)dist_bits << 32) | (unsigned int)idx;
 }
 
-// Lower *p to w.  The word only ever decreases, so a stale read costs at
-// most a needless atomic.
-__device__ __forceinline__ void merge_word(unsigned long long* p, unsigned long long w) {
-  if (w < *reinterpret_cast<volatile unsigned long long*>(p)) atomicMin(p, w);
+// Lower *p to w (a 64-bit (distance bits, index) word or the 32 bits of a
+// distance).  The word only ever decreases, so a stale read costs at most a
+// needless atomic.
+template <typename Word>
+__device__ __forceinline__ void merge_word(Word* p, Word w) {
+  if (w < *reinterpret_cast<volatile Word*>(p)) atomicMin(p, w);
 }
 
 // The deferred argmin of the column side: of the kGroupRows x rows from
@@ -320,6 +208,30 @@ __device__ __forceinline__ int first_row_of_group(const float* __restrict__ xb, 
     }
   }
   return first;
+}
+
+// A thread's kGroupCols consecutive y columns from j0 on: 12 consecutive
+// floats, three 16-byte loads where the batch entry's y happens to be aligned
+// (vec_ok: the chunk's first column is; j0 is a multiple of 4 columns = 48
+// bytes further).  Columns past the chunk hold -inf: +inf away from every x
+// row, the +inf rows included (no NaN), so they never win a row minimum.
+__device__ __forceinline__ void load_columns(const float* __restrict__ yb, int j0, int col_end,
+                                             bool vec_ok, float (&yc)[kGroupCols][3]) {
+  if (vec_ok && j0 + kGroupCols <= col_end) {
+    const float4* p = reinterpret_cast<const float4*>(yb + 3 * (size_t)j0);
+    const float4 a = p[0], b = p[1], c = p[2];
+    yc[0][0] = a.x; yc[0][1] = a.y; yc[0][2] = a.z;
+    yc[1][0] = a.w; yc[1][1] = b.x; yc[1][2] = b.y;
+    yc[2][0] = b.z; yc[2][1] = b.w; yc[2][2] = c.x;
+    yc[3][0] = c.y; yc[3][1] = c.z; yc[3][2] = c.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kGroupCols; ++c) {
+      const bool in = j0 + c < col_end;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) yc[c][k] = in ? yb[3 * (size_t)(j0 + c) + k] : -CUDART_INF_F;
+    }
+  }
 }
 
 // Shared memory of a block: the x rows, the cross-warp row fold, and (only
@@ -378,8 +290,6 @@ __device__ __forceinline__ void bidir_sweep(const float* __restrict__ x,
   const int span = threads * kGroupCols;
   const int iters = (col_end - col0 + span - 1) / span;
   const int nsub = (min(rows, n - row0) + kSubRows - 1) / kSubRows;
-  // a thread's kGroupCols columns are 12 consecutive floats: three 16-byte
-  // loads where the batch entry's y happens to be aligned
   const bool vec_ok = (reinterpret_cast<uintptr_t>(yb + 3 * (size_t)col0) & 15) == 0;
 
   for (int sub = 0; sub < nsub; ++sub) {
@@ -395,24 +305,8 @@ __device__ __forceinline__ void bidir_sweep(const float* __restrict__ x,
     for (int it = 0; it < iters; ++it) {
       const int slot = (it * threads + tid) * kGroupCols;
       const int j0 = col0 + slot;
-      // columns past the chunk hold -inf: +inf away from every x row, the
-      // +inf rows included (no NaN), so they never win a row minimum
       float yc[kGroupCols][3];
-      if (vec_ok && j0 + kGroupCols <= col_end) {
-        const float4* p = reinterpret_cast<const float4*>(yb + 3 * (size_t)j0);
-        const float4 a = p[0], b = p[1], c = p[2];
-        yc[0][0] = a.x; yc[0][1] = a.y; yc[0][2] = a.z;
-        yc[1][0] = a.w; yc[1][1] = b.x; yc[1][2] = b.y;
-        yc[2][0] = b.z; yc[2][1] = b.w; yc[2][2] = c.x;
-        yc[3][0] = c.y; yc[3][1] = c.z; yc[3][2] = c.w;
-      } else {
-#pragma unroll
-        for (int c = 0; c < kGroupCols; ++c) {
-          const bool in = j0 + c < col_end;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) yc[c][k] = in ? yb[3 * (size_t)(j0 + c) + k] : -CUDART_INF_F;
-        }
-      }
+      load_columns(yb, j0, col_end, vec_ok, yc);
 
       float cm[kGroupCols];
       int cg[kGroupCols];
@@ -606,8 +500,8 @@ fold_partials_kernel(const float* __restrict__ cmin, const int* __restrict__ car
   }
 }
 
-__global__ void fill_words_kernel(unsigned long long* words, long long count,
-                                  unsigned long long value) {
+template <typename Word>
+__global__ void fill_words_kernel(Word* words, long long count, Word value) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k < count) words[k] = value;
 }
@@ -640,16 +534,283 @@ __global__ void unpack_words_kernel(const unsigned long long* __restrict__ words
   }
 }
 
+// ---------------------------------------------------------------------------
+// The one-sided and the index-free sweep (nn_kernel, nn_min_bidir_kernel).
+// ---------------------------------------------------------------------------
+
+constexpr unsigned int kInfBits = 0x7f800000u;
+
+// The minimum of three distances.  They are never NaN, never negative and
+// never -0.0, so they order as the signed integers of their bits, and one
+// three-input integer minimum (VIMNMX3, a DPX instruction of sm_90) does
+// what two FMNMX would, on the same bits (the min-only sweep took 14% less
+// time with it than with FMNMX; PERF.md).  The order of the folds does not
+// show in the result.
+__device__ __forceinline__ float min3(float a, float b, float c) {
+  return __int_as_float(__vimin3_s32(__float_as_int(a), __float_as_int(b), __float_as_int(c)));
+}
+
+// min(acc, v[0], ..., v[COUNT - 1])
+template <int COUNT>
+__device__ __forceinline__ float min_into(float acc, const float* v) {
+  int k = 0;
+#pragma unroll
+  for (; k + 1 < COUNT; k += 2) acc = min3(acc, v[k], v[k + 1]);
+  if (k < COUNT) acc = fminf(acc, v[k]);
+  return acc;
+}
+
+// Shared memory of a block: the x rows, two buffers of the cross-warp row
+// fold (the bits, and the group bases of the indexed sweep) and, in the
+// min-only sweep of more than one sub-tile, 4 bytes of running column
+// minimum per slot.
+__host__ __device__ inline int light_state_slots(bool indexed, int rows, int cols, int threads) {
+  if (indexed || rows <= kSubRows) return 0;
+  const int span = threads * kGroupCols;
+  return (cols + span - 1) / span * span;
+}
+
+__host__ __device__ inline int light_shared_bytes(bool indexed, int rows, int cols, int threads) {
+  return rows * 16 + 2 * (threads / 32) * kSubRows * (indexed ? 8 : 4) +
+         light_state_slots(indexed, rows, cols, threads) * 4;
+}
+
+// One block: x rows [blockIdx.x * rows, +rows) against y columns
+// [blockIdx.y * cols, +cols) of batch entry blockIdx.z; a thread holds
+// kGroupCols consecutive columns.
+//   INDEXED: x -> y only, minimum and first index, written to (dx, ix); the
+//     chunk is all of y (gridDim.y == 1).
+//   not INDEXED: minima of both directions, merged into row_bits (S, N) and
+//     col_bits (S, M), the bits of fp32 distances, which start at +inf.
+template <int NORM, bool INDEXED>
+__device__ __forceinline__ void light_sweep(const float* __restrict__ x,
+                                            const float* __restrict__ y, int n, int m, int rows,
+                                            int cols, float* __restrict__ dx,
+                                            int64_t* __restrict__ ix, unsigned int* row_bits,
+                                            unsigned int* col_bits) {
+  extern __shared__ float4 sweep_smem[];
+  const int threads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = threads >> 5;
+  const int s = blockIdx.z;
+  const int row0 = blockIdx.x * rows;
+  const int col0 = blockIdx.y * cols;
+  const int col_end = min(m, col0 + cols);
+  const float* xb = x + (size_t)s * n * 3;
+  const float* yb = y + (size_t)s * m * 3;
+
+  float4* xs = sweep_smem;
+  const int fold_slots = nwarps * kSubRows;
+  unsigned int* fold_bits = reinterpret_cast<unsigned int*>(xs + rows);          // two buffers
+  int* fold_base = reinterpret_cast<int*>(fold_bits + 2 * fold_slots);           // INDEXED
+  float* st_min = reinterpret_cast<float*>(fold_bits + 2 * fold_slots);          // not INDEXED
+
+  for (int i = tid; i < rows; i += threads) {
+    const int r = row0 + i;
+    xs[i] = r < n ? make_float4(xb[3 * r], xb[3 * r + 1], xb[3 * r + 2], 0.f)
+                  : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
+  }
+  __syncthreads();
+
+  const int span = threads * kGroupCols;
+  const int iters = (col_end - col0 + span - 1) / span;
+  const int nsub = (min(rows, n - row0) + kSubRows - 1) / kSubRows;
+  const bool vec_ok = (reinterpret_cast<uintptr_t>(yb + 3 * (size_t)col0) & 15) == 0;
+
+#pragma unroll 1
+  for (int sub = 0; sub < nsub; ++sub) {
+    const float4* xt = xs + sub * kSubRows;
+    float rmin[kSubRows];
+    int rbase[kSubRows];
+#pragma unroll
+    for (int i = 0; i < kSubRows; ++i) {
+      rmin[i] = CUDART_INF_F;
+      rbase[i] = col0;
+    }
+
+#pragma unroll 1
+    for (int it = 0; it < iters; ++it) {
+      const int slot = (it * threads + tid) * kGroupCols;
+      const int j0 = col0 + slot;
+      float yc[kGroupCols][3];
+      load_columns(yb, j0, col_end, vec_ok, yc);
+
+      float cm[kGroupCols];
+      if (!INDEXED) {
+        const float4 v = sub == 0 ? make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                                CUDART_INF_F)
+                                  : *reinterpret_cast<const float4*>(st_min + slot);
+        cm[0] = v.x; cm[1] = v.y; cm[2] = v.z; cm[3] = v.w;
+      }
+
+      // two rows a step: a column's running minimum takes both in one min3
+#pragma unroll
+      for (int i = 0; i < kSubRows; i += 2) {
+        float d[2][kGroupCols];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float4 xv = xt[i + r];
+#pragma unroll
+          for (int c = 0; c < kGroupCols; ++c) {
+            d[r][c] = pair_dist<NORM>(xv, yc[c][0], yc[c][1], yc[c][2]);
+          }
+          if (INDEXED) {
+            // groups ascend with the passes: strictly-less keeps the first
+            const float low = min_into<kGroupCols - 1>(d[r][0], d[r] + 1);
+            if (low < rmin[i + r]) {
+              rmin[i + r] = low;
+              rbase[i + r] = j0;
+            }
+          } else {
+            rmin[i + r] = min_into<kGroupCols>(rmin[i + r], d[r]);
+          }
+        }
+        if (!INDEXED) {
+#pragma unroll
+          for (int c = 0; c < kGroupCols; ++c) cm[c] = min3(cm[c], d[0][c], d[1][c]);
+        }
+      }
+
+      if (!INDEXED) {
+        if (sub + 1 < nsub) {
+          *reinterpret_cast<float4*>(st_min + slot) = make_float4(cm[0], cm[1], cm[2], cm[3]);
+        } else {
+          // the block's last sub-tile: its column minima leave the block
+#pragma unroll
+          for (int c = 0; c < kGroupCols; ++c) {
+            if (j0 + c < col_end) {
+              merge_word(col_bits + (size_t)s * m + j0 + c, __float_as_uint(cm[c]));
+            }
+          }
+        }
+      }
+    }
+
+    // Row side of the sub-tile, as in bidir_sweep: over the warp the minimum
+    // of the distance bits and (INDEXED) the lowest group base among the
+    // lanes that hold it; lane i keeps row i's.  The warps meet in one of
+    // two buffers, taken in turns, so a sub-tile costs one barrier: warp 0
+    // reads buffer k while the others fill buffer k + 1, and buffer k is
+    // written again only behind the next barrier, which warp 0 joins after
+    // its reads.
+    unsigned int* red_bits = fold_bits + (sub & 1) * fold_slots;
+    int* red_base = fold_base + (sub & 1) * fold_slots;
+    unsigned int my_bits = 0;
+    int my_base = 0;
+#pragma unroll
+    for (int i = 0; i < kSubRows; ++i) {
+      const unsigned int bits = __float_as_uint(rmin[i]);
+      const unsigned int wbits = __reduce_min_sync(0xffffffffu, bits);
+      int wbase = 0;
+      if (INDEXED) {
+        wbase = __reduce_min_sync(0xffffffffu, bits == wbits ? rbase[i] : 0x7fffffff);
+      }
+      if (lane == i) {
+        my_bits = wbits;
+        my_base = wbase;
+      }
+    }
+    red_bits[warp * kSubRows + lane] = my_bits;
+    if (INDEXED) red_base[warp * kSubRows + lane] = my_base;
+    __syncthreads();
+    if (warp == 0) {
+      unsigned int bits = red_bits[lane];
+      int base = INDEXED ? red_base[lane] : 0;
+      for (int w = 1; w < nwarps; ++w) {
+        const unsigned int ob = red_bits[w * kSubRows + lane];
+        if (INDEXED) {
+          const int obase = red_base[w * kSubRows + lane];
+          if (ob < bits || (ob == bits && obase < base)) {
+            bits = ob;
+            base = obase;
+          }
+        } else {
+          bits = min(bits, ob);
+        }
+      }
+      const int r = row0 + sub * kSubRows + lane;
+      if (INDEXED) {
+        // the deferred argmin: first column of the winning group whose
+        // distance equals the minimum
+        const float4 xv = xt[lane];
+        int idx = base;
+#pragma unroll
+        for (int c = kGroupCols - 1; c >= 0; --c) {
+          const int j = base + c;
+          if (j < col_end) {
+            const float d = pair_dist<NORM>(xv, yb[3 * (size_t)j], yb[3 * (size_t)j + 1],
+                                            yb[3 * (size_t)j + 2]);
+            if (__float_as_uint(d) == bits) idx = j;
+          }
+        }
+        if (r < n) {
+          dx[(size_t)s * n + r] = __uint_as_float(bits);
+          ix[(size_t)s * n + r] = idx;
+        }
+      } else if (r < n) {
+        merge_word(row_bits + (size_t)s * n + r, bits);
+      }
+    }
+  }
+}
+
+template <int NORM>
+__global__ void __launch_bounds__(kSweepMaxThreads)
+nn_kernel(const float* __restrict__ x, const float* __restrict__ y, int n, int m, int rows,
+          float* __restrict__ dx, int64_t* __restrict__ ix) {
+  light_sweep<NORM, true>(x, y, n, m, rows, m, dx, ix, nullptr, nullptr);
+}
+
+template <int NORM>
+__global__ void __launch_bounds__(kSweepMaxThreads)
+nn_min_bidir_kernel(const float* __restrict__ x, const float* __restrict__ y, int n, int m,
+                    int rows, int cols, unsigned int* row_bits, unsigned int* col_bits) {
+  light_sweep<NORM, false>(x, y, n, m, rows, cols, nullptr, nullptr, row_bits, col_bits);
+}
+
 // A launch of bidir_sweep is valid for these block parameters.
 inline bool sweep_params_ok(int rows, int cols, int threads) {
   return rows > 0 && rows % kSubRows == 0 && cols > 0 && threads >= 32 && threads % 32 == 0 &&
          threads <= kSweepMaxThreads && sweep_shared_bytes(rows, cols, threads) <= kSharedLimit;
 }
 
+// ... and a launch of light_sweep for these.
+inline bool light_params_ok(bool indexed, int rows, int cols, int threads) {
+  return rows > 0 && rows % kSubRows == 0 && cols > 0 && threads >= 32 && threads % 32 == 0 &&
+         threads <= kSweepMaxThreads &&
+         light_shared_bytes(indexed, rows, cols, threads) <= kSharedLimit;
+}
+
 template <typename Kernel>
 inline cudaError_t allow_shared(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedLimit);
+}
+
+template <int NORM>
+cudaError_t launch_nn(const float* x, const float* y, int s, int n, int m, int rows, int threads,
+                      float* dx, int64_t* ix, cudaStream_t st) {
+  const int shared = light_shared_bytes(true, rows, m, threads);
+  const cudaError_t err = allow_shared(nn_kernel<NORM>, shared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + rows - 1) / rows, 1, s);
+  nn_kernel<NORM><<<grid, threads, shared, st>>>(x, y, n, m, rows, dx, ix);
+  return cudaGetLastError();
+}
+
+template <int NORM>
+cudaError_t launch_min_bidir(const float* x, const float* y, int s, int n, int m, int rows,
+                             int cols, int threads, unsigned int* row_bits,
+                             unsigned int* col_bits, cudaStream_t st) {
+  const int shared = light_shared_bytes(false, rows, cols, threads);
+  const cudaError_t err = allow_shared(nn_min_bidir_kernel<NORM>, shared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + rows - 1) / rows, (m + cols - 1) / cols, s);
+  nn_min_bidir_kernel<NORM><<<grid, threads, shared, st>>>(x, y, n, m, rows, cols, row_bits,
+                                                           col_bits);
+  return cudaGetLastError();
 }
 }  // namespace
 
@@ -662,7 +823,11 @@ extern "C" int knn_sweep_shared_bytes(int rows, int cols, int threads) {
   return sweep_shared_bytes(rows, cols, threads);
 }
 
-// The sweep's block constants, which ops/knn.py mirrors for its planning:
+extern "C" int knn_light_shared_bytes(int indexed, int rows, int cols, int threads) {
+  return light_shared_bytes(indexed != 0, rows, cols, threads);
+}
+
+// The sweeps' block constants, which ops/knn.py mirrors for its planning:
 // 0 kSubRows, 1 kGroupRows, 2 kGroupCols, 3 kSweepMaxThreads, 4 kSharedLimit;
 // -1 for any other number.
 extern "C" int knn_sweep_constant(int which) {
@@ -710,39 +875,44 @@ extern "C" int knn_bidir_launch(const float* x, const float* y, int s, int n, in
   return (int)cudaGetLastError();
 }
 
-// x (S, N, 3), y (S, M, 3) -> dx (S, N) f32; cmin_bits (S, M) u32 must hold
-// the bits of +inf (0x7f800000) on entry and holds the fp32 column minima
-// on exit.
+// x (S, N, 3), y (S, M, 3) -> bits: S * (N + M) fp32 values, the x -> y
+// minima (S, N) and then the y -> x minima (S, M).  A block owns `rows` x rows
+// (a multiple of 32) and `cols` y columns and runs `threads` threads.  Two
+// launches: the fill with +inf, the sweep.
 extern "C" int knn_min_bidir_launch(const float* x, const float* y, int s, int n, int m,
-                                    int norm, float* dx, unsigned int* cmin_bits,
-                                    void* stream) {
-  if (s <= 0 || n <= 0 || m <= 0 || s > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTileRows - 1) / kTileRows, s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (norm == 1) {
-    nn_min_bidir_kernel<1><<<grid, kThreads, 0, st>>>(x, y, n, m, dx, cmin_bits);
-  } else if (norm == 2) {
-    nn_min_bidir_kernel<2><<<grid, kThreads, 0, st>>>(x, y, n, m, dx, cmin_bits);
-  } else {
+                                    int norm, int rows, int cols, int threads,
+                                    unsigned int* bits, void* stream) {
+  if (s <= 0 || n <= 0 || m <= 0 || s > 65535 || !light_params_ok(false, rows, cols, threads) ||
+      (m + cols - 1) / cols > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const long long row_count = (long long)s * n;
+  const long long count = row_count + (long long)s * m;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fill_words_kernel<<<(int)((count + 255) / 256), 256, 0, st>>>(bits, count, kInfBits);
+  if (norm == 1) {
+    return (int)launch_min_bidir<1>(x, y, s, n, m, rows, cols, threads, bits, bits + row_count,
+                                    st);
+  }
+  if (norm == 2) {
+    return (int)launch_min_bidir<2>(x, y, s, n, m, rows, cols, threads, bits, bits + row_count,
+                                    st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// x (S, N, 3), y (S, M, 3) -> dx (S, N) f32, ix (S, N) i64: x -> y only.
+// x (S, N, 3), y (S, M, 3) -> dx (S, N) f32, ix (S, N) i64: x -> y only.  A
+// block owns `rows` x rows (a multiple of 32) against all of y and runs
+// `threads` threads.  One launch.
 extern "C" int knn_nn_launch(const float* x, const float* y, int s, int n, int m, int norm,
-                             float* dx, int64_t* ix, void* stream) {
-  if (s <= 0 || n <= 0 || m <= 0 || s > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTileRows - 1) / kTileRows, s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (norm == 1) {
-    nn_kernel<1><<<grid, kThreads, 0, st>>>(x, y, n, m, dx, ix);
-  } else if (norm == 2) {
-    nn_kernel<2><<<grid, kThreads, 0, st>>>(x, y, n, m, dx, ix);
-  } else {
+                             int rows, int threads, float* dx, int64_t* ix, void* stream) {
+  if (s <= 0 || n <= 0 || m <= 0 || s > 65535 || !light_params_ok(true, rows, m, threads)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (norm == 1) return (int)launch_nn<1>(x, y, s, n, m, rows, threads, dx, ix, st);
+  if (norm == 2) return (int)launch_nn<2>(x, y, s, n, m, rows, threads, dx, ix, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x (S, N, 3), y (S, M, 3) -> dx (S, N) f32, ix (S, N) i64, dy (S, M) f32,

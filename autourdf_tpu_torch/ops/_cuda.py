@@ -38,8 +38,9 @@ _SIGNATURES = {
         "knn_sweep_shared_bytes": ([_I, _I, _I], _I),
         "knn_sweep_constant": ([_I], _I),
         "knn_bidir_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
-        "knn_min_bidir_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
-        "knn_nn_launch": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "knn_light_shared_bytes": ([_I, _I, _I, _I], _I),
+        "knn_min_bidir_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+        "knn_nn_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
         "knn_bidir_acc_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _U64,
                                   _P], _I),
     },

@@ -8,7 +8,7 @@ Phases, each of which fails the run on error:
 1. print the device and ``nvidia-smi``'s name and power limit;
 2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (nvcc, sm_90a);
    print ptxas' registers (a spill fails the run) and the SASS instruction
-   count of the indexed sweep's inner loop;
+   counts of the four search kernels' inner loops;
 3. hold every kernel against its plain PyTorch version on the card (exact
    distances and indices) at the production shape with masked rows and
    forced ties, at a ragged shape and at the main path's shape, the
@@ -17,13 +17,17 @@ Phases, each of which fails the run on error:
    per-tile kernel and at 20,000 points, both indexed kernels on cases built
    to break their grouped minima (ties across register groups, sub-tiles,
    blocks and column chunks, ragged edges, the largest M the per-tile kernel
-   takes and the first it does not) under planned and forced block shapes;
-   check the Chamfer value and
+   takes and the first it does not) under planned and forced block shapes,
+   and the one-directional and the min-only kernel on the same kind of
+   cases (ties across a thread's group, its passes, the warps and, for the
+   min-only kernel, column chunks; N < 32 and M < one group; S = 1 and 100;
+   all-sentinel targets; the carry shape); check the Chamfer value and
    gradients, farthest-point sampling and one ICP step against the plain
    path on the CPU; time each kernel, its plain version and one library
    call, beside the bound and the floor of unfused fp32 work, and the
    per-tile and accumulator kernels side by side at both sizes, wrapper time
-   and device time (the dispatch rule of ops/knn.py);
+   and device time (the dispatch rule of ops/knn.py), and the
+   one-directional kernel also at the carry test's and at a link-ICP shape;
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
@@ -46,6 +50,7 @@ repository around it.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -80,6 +85,16 @@ EPOCHS, PAIRS = 300, 9
 ICP_STEP_ATOL = 1e-5
 ICP_ITERATIONS = 30
 LARGE_N = 20000
+# (S, N, M) of a link-ICP launch of the urdf stage: links x the largest link
+# cloud, against itself (phase 6 prints the shapes it launched)
+LINK_ICP_SHAPE = (6, 2242, 2242)
+
+
+# the kernels whose inner loops phase 2 counts (mangled-name fragments): the
+# L1 indexed sweeps, the one-directional search at squared L2 and the
+# min-only search at L1
+SASS_KERNELS = ("nn_bidir_kernelILi1E", "nn_bidir_acc_kernelILi1E", "nn_kernelILi2E",
+                "nn_min_bidir_kernelILi1E")
 
 
 def _fail(msg: str) -> None:
@@ -132,18 +147,22 @@ def _device_ms(fn, reps: int = 20) -> float:
     return sum(_device_ms_by_kernel(fn, reps).values())
 
 
-def _sweep_ms(by_kernel: dict[str, float]) -> float:
+def _sweep_ms(by_kernel: dict[str, float], kernel: str = "nn_bidir") -> float:
     """Of a wrapper's device kernels, the time of the search kernel alone
-    (not the fill, the fold or the unpack beside it)."""
-    return sum(ms for name, ms in by_kernel.items() if "nn_bidir" in name)
+    (not the fill, the fold or the unpack beside it).  ``kernel`` is a launch
+    counter's name; the default takes either indexed bidirectional kernel."""
+    return sum(ms for name, ms in by_kernel.items()
+               if (kernel if kernel == "nn_bidir" else f"{kernel}_kernel") in name)
 
 
 def sass_inner_loop(so_path: str, kernel: str, dump_to: str | None = None) -> dict | None:
     """Instruction counts of ``kernel``'s inner loop in the built library,
     from ``cuobjdump -sass``: the shortest loop (backward branch) that holds
-    at least half of the function's FADDs.  The body of the sweep's loop is
-    one column pass of a sub-tile, SWEEP_SUB_ROWS x SWEEP_GROUP_COLS pairs,
-    plus the column flush that only a block's last sub-tile runs.  Writes the
+    at least two fifths of the function's FADDs (half, but the compiler may
+    keep a second copy of the loop for unaligned loads).  The body of a
+    sweep's loop is one column pass of a sub-tile, SWEEP_SUB_ROWS x
+    SWEEP_GROUP_COLS pairs, plus the column flush that only a block's last
+    sub-tile runs.  Writes the
     function's SASS to ``dump_to`` if given.  None where cuobjdump is
     missing, the function is not in the library or no such loop is found."""
     import re
@@ -170,7 +189,7 @@ def sass_inner_loop(so_path: str, kernel: str, dump_to: str | None = None) -> di
             if target is None or int(target.group(1), 16) >= addr:
                 continue
             body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
-            if 2 * body.count("FADD") >= fadds and (best is None or len(body) < len(best)):
+            if 5 * body.count("FADD") >= 2 * fadds and (best is None or len(body) < len(best)):
                 best = body
         if best is None:
             return None
@@ -293,6 +312,7 @@ def check_kernels(dev, n_main: int) -> dict:
 
     out["extra"] = {n: _check_new_kernel_shapes(dev, n_main, n) for n in (1, 2)}
     out["design"] = {n: _check_sweep_design(dev, n) for n in (1, 2)}
+    out["light"] = {n: _check_light_design(dev, n) for n in (1, 2)}
     _check_fps_and_icp(dev)
 
     # times at the main path's shape, norm 1 (the Chamfer-L1 loss)
@@ -316,11 +336,18 @@ def check_kernels(dev, n_main: int) -> dict:
             bound=_bound_ms(S, N, M, 4 + 8)),
         "nn_min_bidir": dict(
             ms=_time_ms(lambda: knn.nn_min_bidirectional(x, y, 1)),
-            device_ms=_device_ms(lambda: knn.nn_min_bidirectional(x, y, 1)),
             plain_ms=_time_ms(lambda: knn._nn_min_bidir_plain(x, y, 1), reps=5),
             library_ms=_time_ms(lib_min, reps=5),
             bound=_bound_ms(S, N, M, 4)),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_min = _device_ms_by_kernel(lambda: knn.nn_min_bidirectional(x, y, 1))
+    timing["nn_min_bidir"].update(device_ms=sum(by_min.values()),
+                                  kernel_device_ms=_sweep_ms(by_min, "nn_min_bidir"))
+    print(f"  nn_min_bidir S={S} N=M={N} norm=1: device time kernel alone "
+          f"{_sweep_ms(by_min, 'nn_min_bidir'):.4f} ms, with its fill "
+          f"{sum(by_min.values()):.4f} ms ({len(by_min)} device kernels)")
+    _print_plan(knn.plan_bidir(S, N, M, sms, "nn_min_bidir"), sms)
     for name, t in timing.items():
         t["shape"] = f"S={S} N=M={N} norm=1"
         t["unfused_floor_ms"] = _unfused_floor_ms(S, N, M)
@@ -334,24 +361,31 @@ def check_kernels(dev, n_main: int) -> dict:
     def lib_nn():
         return torch.cdist(xb, yb).min(-1)
 
+    nn_device = _device_ms(lambda: knn.nn_search(xb, yb, 2), reps=5)
     timing["nn"] = dict(
         ms=_time_ms(lambda: knn.nn_search(xb, yb, 2)),
-        device_ms=_device_ms(lambda: knn.nn_search(xb, yb, 2), reps=5),
+        device_ms=nn_device, kernel_device_ms=nn_device,        # one device kernel
         unfused_floor_ms=_unfused_floor_ms(100, n_main, n_main),
         plain_ms=_time_ms(lambda: knn._nn_plain(xb, yb, 2), reps=3, warm=1),
         library_ms=_time_ms(lib_nn, reps=3, warm=1),
         bound=_bound_ms(100, n_main, n_main, 4 + 8, both_directions=False),
         shape=f"S=100 N=M={n_main} norm=2")
+    _print_plan(knn.plan_bidir(100, n_main, n_main, sms, "nn"), sms)
     del xb, yb
     torch.cuda.empty_cache()
-    # ... and at the carry test's shape: K*K*P = 25,600 queries against 2,048
-    # points, the 9 frame pairs of a sequence in one launch
-    xc, yc = _case(np.random.default_rng(4), 9, 25600, 2048, dev, False)
-    carry = (_time_ms(lambda: knn.nn_search(xc, yc, 2)),
-             _bound_ms(9, 25600, 2048, 4 + 8, both_directions=False))
-    print(f"  time nn           S=9 N=25600 M=2048 norm=2 (carry test): kernel {carry[0]:.4f} ms, "
-          f"bound {carry[1][0]:.4f} ms ({carry[1][1]})")
-    del xc, yc
+    # ... at the carry test's shape (K*K*P = 25,600 queries against 2,048
+    # points, the 9 frame pairs of a sequence in one launch) and at a shape of
+    # the urdf stage's link ICP (phase 6 prints the shapes it launches)
+    for label, Sc, Nc, Mc in (("carry test", 9, 25600, 2048), ("link ICP", *LINK_ICP_SHAPE)):
+        xc, yc = _case(np.random.default_rng(4), Sc, Nc, Mc, dev, False)
+        wrapper = _time_ms(lambda: knn.nn_search(xc, yc, 2))
+        device = _device_ms(lambda: knn.nn_search(xc, yc, 2))
+        bound = _bound_ms(Sc, Nc, Mc, 4 + 8, both_directions=False)
+        print(f"  time nn           S={Sc} N={Nc} M={Mc} norm=2 ({label}): wrapper "
+              f"{wrapper:.4f} ms, device {device:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"unfused floor {_unfused_floor_ms(Sc, Nc, Mc):.4f} ms")
+        _print_plan(knn.plan_bidir(Sc, Nc, Mc, sms, "nn"), sms)
+        del xc, yc
 
     # the accumulator kernel at the large-cloud shape, and both indexed
     # kernels side by side at both sizes: what the dispatch rule rests on
@@ -371,7 +405,6 @@ def check_kernels(dev, n_main: int) -> dict:
         unfused_floor_ms=_unfused_floor_ms(1, 20000, 20000),
         shape="S=1 N=M=20000 norm=1")
     library = {5: timing["nn_bidir"]["library_ms"], 1: timing["nn_bidir_acc"]["library_ms"]}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     faster = {}
     for xa, ya in ((xs, ys), (xl, yl)):
         Sa, Na, Ma = xa.shape[0], xa.shape[1], ya.shape[1]
@@ -391,11 +424,7 @@ def check_kernels(dev, n_main: int) -> dict:
                   f"{sum(by[k].values()):.4f} ms ({len(by[k])} device kernels); bound "
                   f"{bound:.4f} ms, unfused floor {floor:.4f} ms, library "
                   f"{library[Sa]:.4f} ms")
-            print(f"    plan: {plan.rows} rows x {plan.cols} columns a block, {plan.threads} "
-                  f"threads, grid {plan.grid} = {plan.blocks} blocks, "
-                  f"{plan.blocks_per_sm:.2f} a SM on {sms} SMs, {plan.resident} resident a SM, "
-                  f"{plan.waves:.2f} waves, {plan.shared_bytes} bytes of shared memory, "
-                  f"{plan.scratch_bytes / 1e6:.1f} MB of scratch")
+            _print_plan(plan, sms)
         dev_tile, dev_acc = sum(by["nn_bidir"].values()), sum(by["nn_bidir_acc"].values())
         picks = knn.pick_bidir_plan(Sa, Na, Ma, sms)
         faster[shape] = "per-tile" if dev_tile <= dev_acc else "accumulator"
@@ -423,6 +452,14 @@ def check_kernels(dev, n_main: int) -> dict:
         t["max_abs_err"] = max(v[n][keys[name]] for v in out.values() for n in (1, 2)
                                if keys[name] in v[n])
     return timing
+
+
+def _print_plan(plan, sms: int) -> None:
+    print(f"    plan: {plan.rows} rows x {plan.cols} columns a block, {plan.threads} "
+          f"threads, grid {plan.grid} = {plan.blocks} blocks, "
+          f"{plan.blocks_per_sm:.2f} a SM on {sms} SMs, {plan.resident} resident a SM, "
+          f"{plan.waves:.2f} waves, {plan.shared_bytes} bytes of shared memory, "
+          f"{plan.scratch_bytes / 1e6:.1f} MB of scratch")
 
 
 def _check_new_kernel_shapes(dev, n_main: int, norm: int) -> dict:
@@ -561,6 +598,58 @@ def _check_sweep_design(dev, norm: int) -> dict:
     return errs
 
 
+def _check_light_design(dev, norm: int) -> dict:
+    """Cases built against the design of the one-directional and the min-only
+    kernel, each under the planned block shape and under forced ones (one
+    warp a block, many warps, one sub-tile, many sub-tiles, narrow column
+    chunks for the min-only kernel): exact against the plain versions."""
+    from autourdf_tpu_torch.ops import knn
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(40 + norm)
+    cases = []
+    for label, S, N, M in (("ties ragged", 2, 4989, 4987), ("ties small", 3, 130, 67),
+                           ("N<32 M<4", 1, 20, 3), ("ties S=1", 1, 300, 257),
+                           ("ties S=100", 100, 300, 257), ("ties carry", 2, 25600, 2048)):
+        cases.append((label, *tie_layout_clouds(rng, S, N, M)))
+    xz = rng.uniform(-0.3, 0.3, (2, 700, 3)).astype(np.float32)
+    cases.append(("all-sentinel y", xz, np.full((2, 333, 3), knn.PAD_COORD, np.float32)))
+    # (rows, cols (None: all of y), threads); only the min-only kernel cuts y
+    forced = [(32, None, 32), (32, None, 256), (512, None, 64), (96, None, 128),
+              (256, None, 256), (64, 256, 128), (160, 1024, 64)]
+    errs = {"nn": 0.0, "min": 0.0}
+    for label, xn, yn in cases:
+        x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+        S, N, M = x.shape[0], x.shape[1], y.shape[1]
+        refs = {"nn": knn._nn_plain(x, y, norm), "nn_min_bidir": knn._nn_min_bidir_plain(x, y, norm)}
+        plans = [knn.plan_bidir(S, N, M, sms, k) for k in refs]
+        for rows, cols, threads in forced:
+            if cols is None:
+                plans.append(knn.make_plan(S, N, M, sms, "nn", rows, M, threads))
+            plans.append(knn.make_plan(S, N, M, sms, "nn_min_bidir", rows, cols or M, threads))
+        ok = True
+        for plan in plans:
+            got, ref = knn._launch_sweep(x, y, norm, plan), refs[plan.kernel]
+            key = "nn" if plan.kernel == "nn" else "min"
+            errs[key] = max(errs[key], _max_abs(got[0], ref[0]),
+                            0.0 if key == "nn" else _max_abs(got[1], ref[1]))
+            if (not all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+                    or bool(torch.signbit(got[0]).any())):
+                ok = False
+                print(f"    MISMATCH {label} norm={norm} under {plan}")
+        sentinel_ok = True
+        if label == "all-sentinel y":
+            d, i = knn.nn_search(x, y, norm)
+            sentinel_ok = bool((i == 0).all() and torch.isfinite(d).all())
+        print(f"  light design {label:14s} S={S} N={N} M={M} norm={norm}: nn and nn_min_bidir "
+              f"under {len(plans)} block shapes equal to plain {ok}"
+              + ("" if label != "all-sentinel y"
+                 else f", index 0 at a finite distance {sentinel_ok}"))
+        if not ok or not sentinel_ok:
+            _fail(f"nn or nn_min_bidir disagrees with its plain version ({label}, norm {norm})")
+    return errs
+
+
 def _check_fps_and_icp(dev) -> None:
     """Farthest-point sampling's first-index argmax and one batched ICP step
     (one entry without any inlier) on the card against the CPU."""
@@ -662,12 +751,24 @@ def run_urdf_stage(dev, cfg) -> dict:
     for label, kw in (("known DoF", dict(unknown_dof=False)),
                       ("unknown DoF, no probe", dict(unknown_dof=True, dof_probe=False))):
         before = knn.launch_counts["nn"]
+        shapes: collections.Counter = collections.Counter()
+        launch = knn._launch_sweep
+
+        def recording(x, y, norm, plan):
+            shapes[(plan.kernel, x.shape[0], x.shape[1], y.shape[1], norm)] += 1
+            return launch(x, y, norm, plan)
+
+        knn._launch_sweep = recording       # the shapes this build launches
         t0 = time.time()
-        out = workflow.run_build_urdf(cfg, refine="none", tree="mst", end_video=5,
-                                      verbose=False, device=dev, **kw)
+        try:
+            out = workflow.run_build_urdf(cfg, refine="none", tree="mst", end_video=5,
+                                          verbose=False, device=dev, **kw)
+        finally:
+            knn._launch_sweep = launch
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
         launched = knn.launch_counts["nn"] - before
+        print(f"  {label}: launches by (kernel, S, N, M, norm): {dict(shapes.most_common())}")
         robot = ET.parse(out["urdf_path"]).getroot()
         links, joints = robot.findall("link"), robot.findall("joint")
         stls = [m.get("filename") for m in robot.iter("mesh")]
@@ -879,13 +980,13 @@ def main() -> int:
     from autourdf_tpu_torch.ops.knn import SWEEP_GROUP_COLS, SWEEP_SUB_ROWS
 
     pairs = SWEEP_SUB_ROWS * SWEEP_GROUP_COLS
-    for kname in ("nn_bidir_kernelILi1E", "nn_bidir_acc_kernelILi1E"):
+    for kname in SASS_KERNELS:
         sass = sass_inner_loop(_cuda.build("knn"), kname)
         if sass is None:
             _fail(f"the SASS of {kname}'s inner loop could not be counted: cuobjdump (CUDA "
                   f"toolkit) is missing or no loop of the function holds its distances")
         print(f"  SASS inner loop of {kname} (one column pass of a sub-tile, {pairs} pairs, with "
-              f"the last sub-tile's column flush): {sass['total']} instructions = "
+              f"the column flush, if any, of the last sub-tile): {sass['total']} instructions = "
               f"{sass['total'] / pairs:.2f} a pair; {sass['by_opcode']}")
 
     cfg = PipelineConfig(robot="wx200_real_5", data_root=os.path.join(REPO, "data_real"))

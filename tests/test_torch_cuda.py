@@ -252,6 +252,53 @@ def test_per_tile_kernel_limit_goes_to_the_accumulator_by_rule_on_card(cuda):
         knn._nn_bidir_cuda(x, y, 1)             # 8 * M bytes of column state do not fit
 
 
+# forced block shapes of the one-directional and the min-only kernel:
+# (rows, cols (None: all of y; the min-only kernel alone may cut y), threads)
+FORCED_LIGHT = [(32, None, 64), (32, None, 512), (512, None, 64), (96, None, 128),
+                (256, None, 256), (64, 256, 128), (160, 1024, 64)]
+
+
+def _light_plans(S, N, M, sms):
+    plans = [knn.plan_bidir(S, N, M, sms, k) for k in ("nn", "nn_min_bidir")]
+    for rows, cols, threads in FORCED_LIGHT:
+        if cols is None:
+            plans.append(knn.make_plan(S, N, M, sms, "nn", rows, M, threads))
+        plans.append(knn.make_plan(S, N, M, sms, "nn_min_bidir", rows, cols or M, threads))
+    return plans
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("shape", [(2, 4989, 4987), (3, 130, 67), (1, 300, 257), (100, 300, 257),
+                                   (1, 67, 5200), (1, 20, 3), (2, 25600, 2048)])
+def test_light_kernels_tie_layouts_and_ragged_shapes_on_card(cuda, shape, norm):
+    S, N, M = shape
+    x, y = _tie_clouds(S, N, M, cuda)
+    refs = {"nn": knn._nn_plain(x, y, norm), "nn_min_bidir": knn._nn_min_bidir_plain(x, y, norm)}
+    for plan in _light_plans(S, N, M, _sms(cuda)):
+        before = knn.launch_counts[plan.kernel]
+        got = knn._launch_sweep(x, y, norm, plan)
+        assert knn.launch_counts[plan.kernel] == before + 1
+        for a, b in zip(got, refs[plan.kernel], strict=True):
+            assert a.dtype == b.dtype and torch.equal(a, b), plan
+        assert not bool(torch.signbit(got[0]).any())
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+def test_light_kernels_ties_everywhere_and_all_sentinel_targets_on_card(cuda, norm):
+    # coordinates from a three-value set: almost every minimum is tied
+    x, y = _tie_clouds(3, 700, 333, cuda, values=np.array([0.0, 0.5, 1.0]))
+    sentinel = torch.full_like(y, knn.PAD_COORD)
+    for target in (y, sentinel):
+        refs = {"nn": knn._nn_plain(x, target, norm),
+                "nn_min_bidir": knn._nn_min_bidir_plain(x, target, norm)}
+        for plan in _light_plans(3, 700, 333, _sms(cuda)):
+            got = knn._launch_sweep(x, target, norm, plan)
+            for a, b in zip(got, refs[plan.kernel], strict=True):
+                assert torch.equal(a, b), plan
+    d, i = knn.nn_search(x, sentinel, norm)
+    assert bool(torch.isfinite(d).all()) and int(i.abs().max()) == 0
+
+
 def test_planned_shared_memory_matches_the_library_on_card(cuda):
     from autourdf_tpu_torch.ops import _cuda
 
@@ -260,6 +307,17 @@ def test_planned_shared_memory_matches_the_library_on_card(cuda):
                                 (160, 20000, 512), (64, 2500, 128), (64, 28672, 256)):
         assert lib.knn_sweep_shared_bytes(rows, cols, threads) == \
             knn.sweep_shared_bytes(rows, cols, threads)
+
+
+def test_light_sweep_shared_memory_matches_the_library_on_card(cuda):
+    from autourdf_tpu_torch.ops import _cuda
+
+    lib = _cuda.library("knn")
+    for kernel in ("nn", "nn_min_bidir"):
+        for rows, cols, threads in ((32, 4988, 64), (64, 4988, 128), (512, 2048, 64),
+                                    (96, 10000, 512), (256, 50000, 256)):
+            assert lib.knn_light_shared_bytes(kernel == "nn", rows, cols, threads) == \
+                knn.light_shared_bytes(kernel, rows, cols, threads)
 
 
 def test_planning_constants_match_the_library_on_card(cuda):

@@ -1,24 +1,28 @@
-"""The algorithm of the port's two indexed search kernels
+"""The algorithms of the port's four search kernels
 (autourdf_tpu_torch/csrc/knn.cu: bidir_sweep behind nn_bidir_kernel and
-nn_bidir_acc_kernel), modelled here in plain PyTorch on the CPU and held
-exactly against the plain version and the JAX package.
+nn_bidir_acc_kernel, light_sweep behind nn_kernel and nn_min_bidir_kernel),
+modelled here in plain PyTorch on the CPU and held exactly against the plain
+versions and the JAX package.
 
-The model follows the kernel step by step: blocks of ``rows`` x rows and
+The models follow the kernels step by step: blocks of ``rows`` x rows and
 ``cols`` y columns, register sub-tiles of 32 rows, a thread's group of 4
 consecutive columns (row side) and groups of 4 consecutive rows (column
-side), grouped minima with a strictly-less update of (minimum, group),
-the argmin resolved afterwards as the first member of the winning group that
-equals the minimum (for the column side after the blocks have met),
-per-block column partials folded first-block-first (per-tile kernel), and
-64-bit (distance bits, index) words whose minimum is taken over blocks in a
-shuffled order (accumulator kernel).  Distances come
-from ``knn._pair_dist``, the plain version's arithmetic, as the kernel's
-recomputed distances repeat its own.
+side of the indexed sweep), grouped minima with a strictly-less update of
+(minimum, group), the argmin resolved afterwards as the first member of the
+winning group that equals the minimum (for the column side after the blocks
+have met), per-block column partials folded first-block-first (per-tile
+kernel), 64-bit (distance bits, index) words whose minimum is taken over
+blocks in a shuffled order (accumulator kernel), and the bits of fp32 minima
+merged over blocks in a shuffled order (min-only kernel).  Distances come
+from ``knn._pair_dist``, the plain version's arithmetic, as the kernels'
+recomputed distances repeat their own.  Two mutations of the row side's
+first-index rule (update on less-or-equal, resolve to the last equal member)
+must fail the comparison.
 
-Tolerance: none.  Indices are equal and distances bit-equal to
-``knn._nn_bidir_plain``; against the JAX kernels (interpret mode) indices are
-equal and distances bit-equal for norm 1, and within 1e-6 for norm 2, where
-XLA may fuse the products into FMAs.
+Tolerance: none.  Indices are equal and distances bit-equal to the plain
+versions; against the JAX kernels (interpret mode) indices are equal and
+distances bit-equal for norm 1, and within 1e-6 for norm 2, where XLA may
+fuse the products into FMAs.
 """
 
 import jax.numpy as jnp
@@ -48,7 +52,40 @@ def _first_equal(values: torch.Tensor, target: float) -> int:
     return int(hits[0]) if len(hits) else 0
 
 
-def sweep_model(x, y, norm, kernel, rows, cols, threads, rng):
+def _row_side(tile, passes, threads, col0, col_end, update="less", resolve="first"):
+    """(minimum, argmin) of the 32 rows of a sub-tile over the block's
+    columns, as a sweep's row side takes them.  ``update`` and ``resolve``
+    are the first-index rule ("less", "first") or a mutation of it."""
+    inf = float("inf")
+    # a thread's group minima, pass by pass, strictly-less: the first pass wins
+    gmin = tile.view(SUB, passes, threads, GROUP_COLS).amin(-1)      # (32, passes, threads)
+    if update == "less":
+        pick = torch.argmin(gmin, dim=1)
+    else:                           # less-or-equal: the last pass that reaches the minimum
+        pick = passes - 1 - torch.argmin(gmin.flip(1), dim=1)
+    rmin = gmin.amin(1)                                               # (32, threads)
+    slot = (pick * threads + torch.arange(threads)) * GROUP_COLS
+    rbase = torch.where(rmin < inf, col0 + slot, torch.full_like(slot, col0))
+    # fold over threads: minimum, then the lowest group base holding it
+    low = rmin.amin(1)
+    base = torch.where(rmin == low[:, None], rbase, torch.full_like(rbase, 0x7FFFFFFF)).amin(1)
+    idx = torch.empty(SUB, dtype=torch.int64)
+    for i in range(SUB):
+        b = int(base[i])
+        hits = torch.nonzero(tile[i, b - col0:min(b + GROUP_COLS, col_end) - col0] == low[i])
+        idx[i] = b + (0 if len(hits) == 0 else int(hits[0] if resolve == "first" else hits[-1]))
+    return low, idx
+
+
+def _block_distances(x, y, norm, s, row0, rows, col0, col_end, width):
+    """The block's distances, +inf where a row or a column is padding."""
+    dist = torch.full((rows, width), float("inf"))
+    live = knn._pair_dist(x[s:s + 1, row0:row0 + rows], y[s:s + 1, col0:col_end], norm)[0]
+    dist[:live.shape[0], :live.shape[1]] = live
+    return dist
+
+
+def sweep_model(x, y, norm, kernel, rows, cols, threads, rng, update="less", resolve="first"):
     """(dx, ix, dy, iy) of one batch, computed as bidir_sweep computes them."""
     S, N, M = x.shape[0], x.shape[1], y.shape[1]
     row_blocks, chunks = -(-N // rows), -(-M // cols)
@@ -68,36 +105,21 @@ def sweep_model(x, y, norm, kernel, rows, cols, threads, rng):
         col_end = min(M, col0 + cols)
         passes = -(-(col_end - col0) // span)
         width = passes * span
-        # the block's distances, +inf where a row or a column is padding
-        dist = torch.full((rows, width), inf)
-        live = knn._pair_dist(x[s:s + 1, row0:row0 + rows], y[s:s + 1, col0:col_end], norm)[0]
-        dist[:live.shape[0], :live.shape[1]] = live
+        dist = _block_distances(x, y, norm, s, row0, rows, col0, col_end, width)
         col_min = torch.full((width,), inf)
         col_grp = torch.zeros(width, dtype=torch.int64)
         nsub = -(-min(rows, N - row0) // SUB)
         for sub in range(nsub):
             tile = dist[sub * SUB:(sub + 1) * SUB]                    # (32, width)
-            # row side: a thread's group minima, pass by pass, strictly-less
-            gmin = tile.view(SUB, passes, threads, GROUP_COLS).amin(-1)  # (32, passes, threads)
-            first_pass = torch.argmin(gmin, dim=1)                    # first pass on ties
-            rmin = gmin.amin(1)                                       # (32, threads)
-            slot = (first_pass * threads + torch.arange(threads)) * GROUP_COLS
-            rbase = torch.where(rmin < inf, col0 + slot, torch.full_like(slot, col0))
-            # fold over threads: minimum, then the lowest group base holding it
-            low = rmin.amin(1)
-            base = torch.where(rmin == low[:, None], rbase,
-                               torch.full_like(rbase, 0x7FFFFFFF)).amin(1)
+            low, idx = _row_side(tile, passes, threads, col0, col_end, update, resolve)
             for i in range(SUB):
                 r = row0 + sub * SUB + i
                 if r >= N:
                     continue
-                b = int(base[i])
-                members = tile[i, b - col0:min(b + GROUP_COLS, col_end) - col0]
-                idx = b + _first_equal(members, float(low[i]))
                 if kernel == "nn_bidir":
-                    dx[s, r], ix[s, r] = low[i], idx
+                    dx[s, r], ix[s, r] = low[i], idx[i]
                 else:
-                    word = _pack(int(_bits(low[i:i + 1])), idx)
+                    word = _pack(int(_bits(low[i:i + 1])), int(idx[i]))
                     if word < int(row_words[s, r]):
                         row_words[s, r] = word
             # column side: minima of groups of 4 rows, ascending, strictly-less
@@ -140,6 +162,42 @@ def sweep_model(x, y, norm, kernel, rows, cols, threads, rng):
     return dx, ix, dy, iy
 
 
+def light_model(x, y, norm, kernel, rows, cols, threads, rng, update="less", resolve="first"):
+    """``(dx, ix)`` of nn_kernel or ``(dx, dy)`` of nn_min_bidir_kernel for one
+    batch, computed as light_sweep computes them."""
+    S, N, M = x.shape[0], x.shape[1], y.shape[1]
+    row_blocks, chunks = -(-N // rows), -(-M // cols)
+    assert kernel == "nn_min_bidir" or chunks == 1    # nn_kernel never cuts y
+    span = threads * GROUP_COLS
+    dx = torch.empty(S, N)
+    ix = torch.empty(S, N, dtype=torch.int64)
+    row_bits = torch.full((S, N), INF_BITS, dtype=torch.int64)      # what the fill kernel writes
+    col_bits = torch.full((S, M), INF_BITS, dtype=torch.int64)
+    blocks = [(s, rb, cb) for s in range(S) for rb in range(row_blocks) for cb in range(chunks)]
+    for s, rb, cb in (blocks[k] for k in rng.permutation(len(blocks))):   # in no order
+        row0, col0 = rb * rows, cb * cols
+        col_end = min(M, col0 + cols)
+        passes = -(-(col_end - col0) // span)
+        dist = _block_distances(x, y, norm, s, row0, rows, col0, col_end, passes * span)
+        col_min = torch.full((passes * span,), float("inf"))
+        for sub in range(-(-min(rows, N - row0) // SUB)):
+            tile = dist[sub * SUB:(sub + 1) * SUB]
+            low, idx = _row_side(tile, passes, threads, col0, col_end, update, resolve)
+            live = min(SUB, N - row0 - sub * SUB)
+            at = slice(row0 + sub * SUB, row0 + sub * SUB + live)
+            if kernel == "nn":
+                dx[s, at], ix[s, at] = low[:live], idx[:live]
+            else:
+                row_bits[s, at] = torch.minimum(row_bits[s, at], _bits(low[:live]))
+                col_min = torch.minimum(col_min, tile.amin(0))      # kept between sub-tiles
+        # the block's column minima leave it once
+        col_bits[s, col0:col_end] = torch.minimum(col_bits[s, col0:col_end],
+                                                  _bits(col_min[:col_end - col0]))
+    if kernel == "nn":
+        return dx, ix
+    return tuple(b.to(torch.int32).view(torch.float32) for b in (row_bits, col_bits))
+
+
 def tie_clouds(rng, S, N, M, values=None):
     """Ties placed against the design: an x row equal to a y point and
     copied to rows in the same group of 4, another group, another sub-tile
@@ -168,9 +226,9 @@ def tie_clouds(rng, S, N, M, values=None):
 
 
 def _assert_exact(got, ref):
-    for name, a, b in zip(("dx", "ix", "dy", "iy"), got, ref):
-        assert a.dtype == b.dtype, name
-        assert torch.equal(a, b), name
+    for k, (a, b) in enumerate(zip(got, ref, strict=True)):
+        assert a.dtype == b.dtype, k
+        assert torch.equal(a, b), k
 
 
 # (kernel, rows, cols (None: all of y), threads), the cases that differ in
@@ -264,6 +322,110 @@ def test_words_round_trip_and_order():
     assert int(words.max()) == knn._ACC_INIT < 2**63
 
 
+# (kernel, rows, cols (None: all of y), threads), the cases of light_sweep that
+# differ in design: one warp or several (the meeting of the warps), one
+# sub-tile a block or several (the column minimum kept between sub-tiles),
+# one column chunk or several (the row side merged across blocks)
+LIGHT_CONFIGS = [("nn", 32, None, 32), ("nn", 64, None, 64),
+                 ("nn_min_bidir", 32, None, 32), ("nn_min_bidir", 96, 132, 64)]
+LIGHT_PLAIN = {"nn": knn._nn_plain, "nn_min_bidir": knn._nn_min_bidir_plain}
+light_ids = pytest.mark.parametrize("config", LIGHT_CONFIGS,
+                                    ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@light_ids
+@pytest.mark.parametrize("shape", SHAPES + [(1, 20, 3)], ids=lambda s: "x".join(map(str, s)))
+def test_model_of_the_light_sweep_equals_plain(shape, config, norm):
+    S, N, M = shape
+    kernel, rows, cols, threads = config
+    rng = np.random.default_rng(N * 1000 + M + norm)
+    x, y = tie_clouds(rng, S, N, M)
+    got = light_model(x, y, norm, kernel, rows, cols or M, threads, rng)
+    _assert_exact(got, LIGHT_PLAIN[kernel](x, y, norm))
+
+
+@pytest.mark.parametrize("kernel,norm", [("nn", 2), ("nn_min_bidir", 1)])
+@pytest.mark.parametrize("case", ["zero_distances", "all_sentinel_y", "sentinel_padded",
+                                  "one_point_everywhere"])
+def test_light_model_on_degenerate_clouds(case, kernel, norm):
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-0.3, 0.3, (2, 100, 3)).astype(np.float32)
+    y = rng.uniform(-0.3, 0.3, (2, 90, 3)).astype(np.float32)
+    if case == "zero_distances":
+        x[:, 10:60] = y[:, 20:70]
+    elif case == "all_sentinel_y":
+        y[:] = knn.PAD_COORD
+    elif case == "sentinel_padded":
+        x[:, 70:] = knn.PAD_COORD
+        y[:, 50:] = knn.PAD_COORD
+    else:
+        x[:] = x[:, :1]
+        y[:] = x[:, :1]
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    got = light_model(x, y, norm, kernel, 64, 90 if kernel == "nn" else 40, 32, rng)
+    _assert_exact(got, LIGHT_PLAIN[kernel](x, y, norm))
+    assert not bool(torch.signbit(got[0]).any())
+    if case == "all_sentinel_y" and kernel == "nn":
+        assert int(got[1].abs().max()) == 0 and bool(torch.isfinite(got[0]).all())
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 80), m=st.integers(1, 80),
+       norm=st.sampled_from([1, 2]), config=st.sampled_from(LIGHT_CONFIGS))
+def test_light_model_with_ties_everywhere(seed, n, m, norm, config):
+    """Coordinates from a three-value set: almost every minimum is tied."""
+    kernel, rows, cols, threads = config
+    rng = np.random.default_rng(seed)
+    x, y = tie_clouds(rng, 1, n, m, values=np.array([0.0, 0.5, 1.0]))
+    got = light_model(x, y, norm, kernel, rows, cols or m, threads, rng)
+    _assert_exact(got, LIGHT_PLAIN[kernel](x, y, norm))
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@light_ids
+def test_light_model_equals_the_tpu_kernels_in_interpret_mode(config, norm):
+    kernel, rows, cols, threads = config
+    rng = np.random.default_rng(12)
+    x, y = tie_clouds(rng, 1, 130, 67)
+    got = light_model(x, y, norm, kernel, rows, 67 if cols is None else 32, threads, rng)
+    jx, jy = jnp.asarray(x[0].numpy()), jnp.asarray(y[0].numpy())
+    if kernel == "nn":
+        ref = jknn.nn_search(jx, jy, norm, "pallas_interpret")
+        np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(ref[1]))
+        pairs = [(got[0], ref[0])]
+    else:
+        pairs = list(zip(got, jknn._nn_min_bidir_pallas(jx, jy, norm, 64, True)))
+    for a, b in pairs:
+        if norm == 1:
+            np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))
+        else:           # XLA may fuse d*d + ... into FMAs: a last-bit difference
+            np.testing.assert_allclose(a[0].numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("mutation", [("less_equal", "first"), ("less", "last")],
+                         ids=["update-on-less-or-equal", "resolve-to-last-equal"])
+@pytest.mark.parametrize("kernel", ["nn", "nn_bidir"])
+def test_mutations_of_the_first_index_rule_fail(kernel, mutation, norm):
+    """The tie clouds tell the first-index rule from its neighbours: a row
+    side that updates on less-or-equal (the last pass wins) or resolves to
+    the last equal member of the group returns other indices than plain."""
+    rng = np.random.default_rng(13)
+    x, y = tie_clouds(rng, 1, 161, 259)
+    update, resolve = mutation
+    if kernel == "nn":
+        got = light_model(x, y, norm, "nn", 64, 259, 32, rng, update, resolve)
+        right = light_model(x, y, norm, "nn", 64, 259, 32, rng)
+    else:
+        got = sweep_model(x, y, norm, "nn_bidir", 64, 259, 32, rng, update, resolve)
+        right = sweep_model(x, y, norm, "nn_bidir", 64, 259, 32, rng)
+    ref = knn._nn_plain(x, y, norm)
+    assert torch.equal(right[0], ref[0]) and torch.equal(right[1], ref[1])
+    assert torch.equal(got[0], ref[0])              # the minima do not care
+    assert not torch.equal(got[1], ref[1])          # the indices do
+
+
 PLAN_SHAPES = [(1, 1, 1), (5, 4988, 4988), (5, 5000, 5000), (2, 4418, 4985), (1, 20000, 20000),
                (100, 4988, 4988), (1, 100, 28672), (1, 100, 28673), (1, 33, 100000),
                (9, 25600, 2048), (65535, 40, 40), (1, 30, 200000)]
@@ -323,3 +485,59 @@ def test_make_plan_refuses_what_the_kernel_refuses():
                                 (64, 0, 128), (64, 50, 128), (64, 40000, 128)):
         kernel = "nn_bidir" if cols in (100, 50) else "nn_bidir_acc"
         assert knn.make_plan(1, 100, 100, 132, kernel, rows, cols, threads) is None
+
+
+@pytest.mark.parametrize("sms", [132, 108, 16])
+@pytest.mark.parametrize("shape", PLAN_SHAPES + [(3, 1, 700), (3, 700, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_light_plans_fit_the_block_and_cover_the_clouds(shape, sms):
+    S, N, M = shape
+    for kernel in ("nn", "nn_min_bidir"):
+        plan = knn.plan_bidir(S, N, M, sms, kernel)         # every shape is taken
+        assert plan.kernel == kernel and plan.scratch_bytes == 0
+        assert plan.shared_bytes == knn.light_shared_bytes(kernel, plan.rows, plan.cols,
+                                                           plan.threads)
+        assert 0 < plan.shared_bytes <= knn.SHARED_LIMIT
+        assert plan.rows % knn.SWEEP_SUB_ROWS == 0 and plan.rows > 0
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= knn.SWEEP_MAX_THREADS
+        assert plan.grid[2] == S <= 65535 and 1 <= plan.grid[1] <= 65535
+        assert plan.grid[0] * plan.rows >= N > (plan.grid[0] - 1) * plan.rows
+        assert plan.grid[1] * plan.cols >= M > (plan.grid[1] - 1) * plan.cols
+        assert plan.resident >= 1
+        assert plan == knn.make_plan(S, N, M, sms, kernel, plan.rows, plan.cols, plan.threads)
+        if kernel == "nn":
+            assert plan.grid[1] == 1 and plan.cols == M     # y is never cut
+        else:
+            assert plan.cols <= knn.MIN_CHUNK_COLS and plan.cols % knn.SWEEP_GROUP_COLS == 0
+            # the column side meets over at least two sub-tiles where x has them
+            assert N <= knn.SWEEP_SUB_ROWS or plan.rows >= 2 * knn.SWEEP_SUB_ROWS
+
+
+def test_plans_at_the_shapes_they_were_fitted_to():
+    """The block shapes the H100 sweeps chose (132 SMs): a change of a
+    planning weight that moves one of them wants a new sweep on the card."""
+    picks = {("nn_bidir", 5, 4988, 4988): (96, 4988, 256),
+             ("nn_bidir_acc", 1, 20000, 20000): (64, 2500, 128),
+             ("nn", 100, 4988, 4988): (64, 4988, 32),
+             ("nn", 9, 25600, 2048): (64, 2048, 32),
+             ("nn", 5, 4988, 4988): (32, 4988, 64),
+             ("nn_min_bidir", 100, 4988, 4988): (384, 4988, 256),
+             ("nn_min_bidir", 9, 25600, 2048): (160, 2048, 128),
+             ("nn_min_bidir", 5, 4988, 4988): (96, 4988, 256)}
+    for (kernel, S, N, M), want in picks.items():
+        plan = knn.plan_bidir(S, N, M, 132, kernel)
+        assert (plan.rows, plan.cols, plan.threads) == want, kernel
+
+
+def test_make_plan_takes_light_block_shapes_and_refuses_bad_ones():
+    assert knn.make_plan(1, 100, 100, 132, "nn", 512, 100, 32).grid == (1, 1, 1)
+    assert knn.make_plan(1, 100, 100, 132, "nn_min_bidir", 64, 48, 64).grid == (2, 3, 1)
+    assert knn.make_plan(1, 100, 100, 132, "nn", 64, 50, 64) is None        # nn never cuts y
+    for rows, cols, threads in ((48, 100, 128), (0, 100, 128), (64, 100, 100), (64, 100, 1024),
+                                (64, 0, 128)):
+        for kernel in ("nn", "nn_min_bidir"):
+            assert knn.make_plan(1, 100, 100, 132, kernel, rows, cols, threads) is None
+    # 4 bytes of column state a slot: a chunk of 100,000 columns does not fit
+    assert knn.make_plan(1, 100, 100000, 132, "nn_min_bidir", 64, 100000, 128) is None
+    with pytest.raises(ValueError):
+        knn.make_plan(1, 100, 100, 132, "nn_forward", 64, 100, 128)
