@@ -3,13 +3,14 @@
     python -m autourdf_tpu_torch.cli register --robot wx200_real_5 --data-root data_real
     python -m autourdf_tpu_torch.cli register ... --mlp_icp --normal --seed-mode fps
     python -m autourdf_tpu_torch.cli urdf --robot wx200_real_5 --data-root data_real \\
-        --end-video 5 --refine none --tree mst [--unknown-dof --no-dof-probe]
+        --end-video 5 [--unknown-dof]
     python -m autourdf_tpu_torch.cli <stage> ... --device cpu   (plain PyTorch path)
 
-``urdf`` takes every flag of ``python -m autourdf_tpu.cli urdf``; the ones
-that need the kinematic-chain fit (``--refine chain``, which is the default,
-and the DoF probe ladder of ``--unknown-dof`` without ``--no-dof-probe``)
-raise ``NotImplementedError`` until that slice is ported.
+``urdf`` takes every flag of ``python -m autourdf_tpu.cli urdf`` with its
+defaults: the kinematic-chain fit (``--refine chain``), the motion tree
+arbitrated against the proximity MST (``--tree motion``) and, with
+``--unknown-dof``, the DoF probe ladder; ``--refine none --tree mst
+--no-dof-probe`` is the reference-parity build.
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def _add_urdf_flags(p: argparse.ArgumentParser) -> None:
                    help="auto = gap when decisive else silhouette; silhouette = "
                         "reference parity")
     p.add_argument("--refine", type=str, default="chain", choices=["chain", "none"],
-                   help="chain = global kinematic-chain joint refinement (not ported "
-                        "yet: raises); none = reference parity")
+                   help="chain = global kinematic-chain joint refinement; none = "
+                        "reference parity")
     p.add_argument("--refine-steps", type=int, default=1200, help="chain fit: Adam steps")
     p.add_argument("--canonical-frames", type=int, default=1,
                    help="chain fit: registered steps per canonical link cloud")
@@ -82,9 +83,9 @@ def _add_urdf_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--chain-balance", action="store_true",
                    help="chain fit: per-link balanced forward Chamfer")
     p.add_argument("--tree", type=str, default="motion", choices=["motion", "mst"],
-                   help="link tree: motion = revolute-consistency MST (raises when it "
-                        "disagrees with the proximity MST: the arbitration needs the "
-                        "chain fit); mst = reference proximity MST")
+                   help="link tree: motion = revolute-consistency MST, arbitrated by a "
+                        "short chain fit where it disagrees with the proximity MST; "
+                        "mst = reference proximity MST")
     p.add_argument("--no-reassign", action="store_true",
                    help="skip the carry-test boundary-cluster reassignment")
     p.add_argument("--no-dof-guard", action="store_true",
@@ -92,7 +93,7 @@ def _add_urdf_flags(p: argparse.ArgumentParser) -> None:
                         "under-split unknown-DoF picks")
     p.add_argument("--no-dof-probe", action="store_true",
                    help="skip the chain-fit probe ladder that arbitrates the "
-                        "unknown-DoF link count (the ladder is not ported yet)")
+                        "unknown-DoF link count")
     p.add_argument("--ladder-share-norm", action=argparse.BooleanOptionalAction, default=True,
                    help="probe ladder: judge each drop against the changed region's "
                         "point share")

@@ -1,3 +1,4 @@
+from .refine import RefineResult, fit_revolute_joint, refine_joints
 from .screw import (
     JointCoherence,
     JointEstimate,
@@ -18,4 +19,7 @@ __all__ = [
     "optimize_joint_axis",
     "screw_axes_from_pose_series",
     "cluster_pose_mean",
+    "refine_joints",
+    "fit_revolute_joint",
+    "RefineResult",
 ]

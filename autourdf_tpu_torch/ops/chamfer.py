@@ -89,8 +89,12 @@ class _ChamferFn(torch.autograd.Function):
             phi_x, phi_y = 2.0 * diff_x, 2.0 * diff_y
         wx = (g / nv)[:, None, None] * xm[..., None]
         wy = (g / mv)[:, None, None] * ym[..., None]
-        grad_x = wx * phi_x + _scatter_add_points(x, iy, -wy * phi_y)
-        grad_y = wy * phi_y + _scatter_add_points(y, ix, -wx * phi_x)
+        # a side that needs no gradient (the frames of a fit) costs nothing
+        grad_x = grad_y = None
+        if ctx.needs_input_grad[0]:
+            grad_x = wx * phi_x + _scatter_add_points(x, iy, -wy * phi_y)
+        if ctx.needs_input_grad[1]:
+            grad_y = wy * phi_y + _scatter_add_points(y, ix, -wx * phi_x)
         return grad_x, grad_y, None, None, None
 
 

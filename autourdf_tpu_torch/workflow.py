@@ -4,8 +4,8 @@ Two stages are ported so far:
 
     register  data/raw/...   ->  data/part/.../{matrix,cluster}/*
     urdf      data/part/...  ->  data/mesh/... + data/urdf/...
-              (structure -> joints -> link meshes -> URDF file), in its
-              reference-parity configuration ``refine="none"``
+              (structure -> joints -> kinematic-chain fit -> link meshes
+              -> URDF file), with the JAX package's defaults
 
 with the reference's on-disk artifact layout, so each stage stays
 resumable from disk.
@@ -206,7 +206,153 @@ def _load_refine_frames(cfg: PipelineConfig, end_video: int | None):
     return frames, fmasks
 
 
-_CHAIN_ITEM = "ROADMAP.md Queue 1 item 9: the chain fit, joints/chain.py"
+def _select_tree_by_chain_fit(candidates: dict, cms, frames, fmasks,
+                              num_steps: int, verbose: bool,
+                              probe_steps: int = 100,
+                              device: str | torch.device = "cuda"):
+    """Pick the tree whose 1-DoF-per-edge chain model best fits the raw
+    clouds (a short probe fit per candidate, on ``device``; see
+    run_build_urdf)."""
+    from .joints import estimate_joints_from_tree
+    from .joints.chain import refine_chain
+
+    best_name, best_links, best_loss = None, None, np.inf
+    for name, links in candidates.items():
+        joints = estimate_joints_from_tree(links, cms, 0, num_steps, interval=4)
+        if not joints:
+            loss = np.inf
+        else:
+            _, result = refine_chain(links, joints, cms, frames,
+                                     steps=probe_steps, points_per_link=1024,
+                                     frame_masks=fmasks, device=device)
+            loss = float(result.loss)
+        if verbose:
+            print(f"[urdf] tree candidate {name}: probe chain loss {loss:.5f}")
+        if loss < best_loss:
+            best_name, best_links, best_loss = name, links, loss
+    if best_links is None:
+        # every candidate produced zero joints (all probe losses inf): take
+        # the first candidate (proximity MST) so downstream gets a tree;
+        # joint estimation then surfaces the real failure
+        best_name = next(iter(candidates))
+        best_links = candidates[best_name]
+        if verbose:
+            print("[urdf] WARNING: no tree candidate yielded joints; "
+                  f"falling back to {best_name}")
+    if verbose:
+        print(f"[urdf] selected {best_name} tree")
+    return best_links
+
+
+def _refine_chain_loop(links, joints, cms, refine_frames, num_steps: int, dof: int, *,
+                       refine_steps: int, chain_balance: bool, canonical_frames: int,
+                       chain_anchors: int, chain_trunc: float, freeze_prune: float,
+                       prune_deg: float, drift_prune: bool, drift_theta_deg: float,
+                       drift_conc: float, drift_spread_deg: float, coart_merge: bool,
+                       verbose: bool, device: torch.device):
+    """The ``refine="chain"`` block of run_build_urdf: fit -> veto -> prune
+    -> REFIT, until a pass prunes nothing.  Returns ``(links, joints, dof)``.
+
+    Merging a vetoed joint changes the structure, and the next pass re-fits
+    and RE-PROBES the merged structure: the freeze-delta of a remaining
+    joint can only drop below threshold once a neighbouring spurious
+    joint's drift absorption is gone.  Bounded: every pass past the first
+    must have pruned at least one joint; clean discoveries exit after one
+    fit (plus the J forward evaluations of the freeze probe).
+    """
+    from .joints import estimate_joints_from_tree, joint_screw_coherence
+    from .joints.chain import (merge_coarticulated_siblings, prune_static_joints,
+                               refine_chain_multi_anchor)
+
+    frames, fmasks = refine_frames
+    # workload scale for the coarticulation line-coincidence gate: diagonal
+    # of the first observed frame cloud
+    _f0 = frames[0, 0][np.asarray(fmasks[0, 0], bool)] if fmasks is not None else frames[0, 0]
+    cloud_scale = float(np.linalg.norm(_f0.max(axis=0) - _f0.min(axis=0)))
+    for _veto_pass in range(8):
+        joints, chain_res = refine_chain_multi_anchor(
+            links, joints, cms, frames, anchors=chain_anchors, steps=refine_steps,
+            points_per_link=1024, frame_masks=fmasks, balance=chain_balance,
+            canonical_frames=canonical_frames, trunc=chain_trunc, verbose=verbose,
+            device=device,
+        )
+        # per-joint articulation diagnostics: fitted theta range from the
+        # chain fit + screw-sample axis coherence from the registration.
+        # The drift veto combines both: a joint BOTH weakly excited and
+        # axis-incoherent is registration drift, not articulation.
+        th = chain_res.thetas
+        ranges = np.degrees((th.max(axis=1) - th.min(axis=1)).max(axis=0))
+        coh = joint_screw_coherence(links, cms, 0, num_steps, interval=4)
+        fdel = chain_res.freeze_deltas
+        fshare = chain_res.subtree_share
+        if verbose:
+            for j, (joint, c) in enumerate(zip(joints, coh)):
+                fd = ""
+                if fdel is not None:
+                    fd = f" freeze {fdel[j] * 100:.1f}%"
+                    if fshare is not None and fshare[j] > 0:
+                        # share-normalized: delta per unit movable mass
+                        fd += f" (norm {fdel[j] / fshare[j] * 100:.0f}%)"
+                print(f"[prune-diag] joint {joint.parent_link}->"
+                      f"{joint.child_link}: theta_range {ranges[j]:.1f}deg "
+                      f"conc {c.concentration:.3f} "
+                      f"spread {c.seq_spread_deg:.1f}deg "
+                      f"total {c.total_angle_deg:.0f}deg{fd}", flush=True)
+        drift_static: list[int] = []
+        if drift_prune:
+            for j, c in enumerate(coh):
+                incoherent = (c.concentration < drift_conc
+                              or (np.isfinite(c.seq_spread_deg)
+                                  and c.seq_spread_deg > drift_spread_deg))
+                if ranges[j] < drift_theta_deg and incoherent:
+                    drift_static.append(j)
+                    if verbose:
+                        print(f"[urdf] drift veto: joint {joints[j].parent_link}->"
+                              f"{joints[j].child_link} (range {ranges[j]:.1f}deg, "
+                              f"conc {c.concentration:.3f}, "
+                              f"spread {c.seq_spread_deg:.1f}deg)", flush=True)
+        if freeze_prune > 0 and fdel is not None:
+            # freeze-delta veto: a joint whose fitted motion buys less
+            # chamfer than ``freeze_prune`` of its subtree's point share is a
+            # symmetry-flat / drift direction, not articulation (spurious
+            # joints read 2-16% normalized, real joints >= 55%; 0.25 sits at
+            # the geometric midpoint of the gap)
+            for j in range(len(joints)):
+                if j in drift_static:
+                    continue
+                norm = (fdel[j] / max(float(fshare[j]), 1e-6)
+                        if fshare is not None else fdel[j])
+                if norm < freeze_prune:
+                    drift_static.append(j)
+                    if verbose:
+                        print(f"[urdf] freeze veto: joint {joints[j].parent_link}->"
+                              f"{joints[j].child_link} (freeze {fdel[j] * 100:.1f}%, "
+                              f"norm {norm * 100:.0f}% < {freeze_prune * 100:.0f}%)",
+                              flush=True)
+        pruned = False
+        if prune_deg > 0 or drift_static:
+            links, pruned = prune_static_joints(
+                links, joints, chain_res.thetas,
+                threshold=np.radians(prune_deg) if prune_deg > 0 else 0.0,
+                extra_static=drift_static)
+        if not pruned and coart_merge:
+            # per-joint vetoes exhausted: the PAIRWISE signal, sibling
+            # joints tracking one physical hinge
+            links, pruned = merge_coarticulated_siblings(
+                links, joints, chain_res.thetas, scale=cloud_scale, verbose=verbose)
+            if pruned and verbose:
+                print("[urdf] coarticulation merge: sibling links share one hinge", flush=True)
+        if not pruned:
+            break
+        # membership changed -> link frames changed; redo the estimate,
+        # then loop back for the refit + re-probe
+        dof = len(links) - 1
+        if verbose:
+            print(f"[urdf] pruned static joint(s): links={len(links)} dof={dof}")
+        joints = estimate_joints_from_tree(links, cms, 0, num_steps, interval=4)
+        if not joints:
+            break
+    return links, joints, dof
 
 
 def run_build_urdf(
@@ -240,31 +386,32 @@ def run_build_urdf(
 ) -> dict:
     """Structure discovery -> joints -> link meshes -> URDF file.
 
-    The signature is that of ``autourdf_tpu.workflow.run_build_urdf`` plus
-    ``device`` (where the carry test and the link ICP run their
-    nearest-neighbour searches).  Ported so far is the reference-parity
-    configuration: ``refine="none"``, with ``tree="mst"`` or a
-    ``tree="motion"`` that agrees with the proximity MST, and either the
-    registry's known DoF or ``unknown_dof=True, dof_probe=False`` (the
-    dendrogram search with the carry-test reassignment and the rigidity
-    guard).  What needs the kinematic-chain fit raises
-    ``NotImplementedError``: ``refine="chain"`` (the default, so a default
-    call raises until the chain fit is ported; the ``refine_steps`` ...
-    ``coart_merge`` arguments belong to it), ``dof_probe`` with
-    ``unknown_dof`` (the probe ladder), and the arbitration between a
-    motion tree and an MST that disagree.
+    The signature and defaults are those of
+    ``autourdf_tpu.workflow.run_build_urdf`` plus ``device``, where every
+    search runs (the carry test, the chain fits, the link ICP).
+
+    ``refine="chain"`` (default) runs the global kinematic-chain fit
+    against the raw frames after the screw estimate, in a fit -> veto ->
+    prune -> refit loop (the freeze-delta veto ``freeze_prune``, the
+    static-joint prune ``prune_deg``, the optional drift veto, the
+    coarticulation merge ``coart_merge``); ``refine="none"`` is the
+    reference-parity build.
+
+    ``tree="motion"`` (default) orders links by single-revolute
+    consistency + proximity (structure.motion_tree); when it disagrees with
+    the reference's proximity MST the two topologies are arbitrated by a
+    short chain-fit probe.  ``tree="mst"`` forces the proximity MST.
+
+    ``reassign`` runs the carry-test boundary-cluster reassignment,
+    ``dof_guard`` the rigidity guard of an unknown-DoF pick, and
+    ``dof_probe`` (with ``unknown_dof``) arbitrates the link count with the
+    chain-fit probe ladder (structure.probe_k_selection).
+    ``chain_anchors`` > 1 averages the chain fit over that many anchor
+    steps; ``canonical_frames``, ``chain_trunc`` and ``chain_balance`` are
+    the fit's opt-in options (joints.chain.refine_chain).
     """
-    if refine == "chain":
-        raise NotImplementedError(
-            f"refine='chain' is not ported yet ({_CHAIN_ITEM}); pass refine='none' for the "
-            "reference-parity build")
-    if refine != "none":
+    if refine not in ("chain", "none"):
         raise ValueError(f"unknown refine mode {refine!r}")
-    if unknown_dof and dof_probe:
-        raise NotImplementedError(
-            "the unknown-DoF probe ladder is not ported yet (ROADMAP.md Queue 1 item 8: "
-            "structure/model_select.py, which needs the chain fit of item 9); pass "
-            "dof_probe=False")
     from .joints import estimate_joints_from_tree
     from .mesh import generate_link_meshes
     from .structure import (
@@ -277,6 +424,7 @@ def run_build_urdf(
         kinematics_tree,
         merge_gap_dof_search,
         motion_tree,
+        probe_k_selection,
         refine_groups_by_carry,
         refine_link_clusters,
         rigidity_guarded_groups,
@@ -320,6 +468,23 @@ def run_build_urdf(
                 print(f"[urdf] rigidity guard escalated: links={len(groups)} dof={dof}")
 
     num_steps = cfg.end_steps - cfg.start_steps
+    refine_frames = None
+    if unknown_dof and dof_probe:
+        refine_frames = _load_refine_frames(cfg, end_video)
+        k_before = len(groups)
+        probe_groups, _ = probe_k_selection(
+            sum_map, cms, refine_frames[0], k0=k_before,
+            frame_masks=refine_frames[1], carry_stack=carry_stack,
+            probe_steps=dof_probe_steps, points_per_link=dof_probe_points,
+            share_normalize=ladder_share_norm, verbose=verbose, device=dev,
+        )
+        if len(probe_groups) != k_before:
+            # keep the main-path partition when the probe confirms k: it
+            # already carries the guard's boundary refinement
+            groups = probe_groups
+            dof = len(groups) - 1
+            if verbose:
+                print(f"[urdf] probe ladder overrode DoF pick: links={len(groups)} dof={dof}")
     if tree == "motion":
         links = motion_tree(cms, groups, num_steps)
         links_mst = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
@@ -328,13 +493,31 @@ def run_build_urdf(
             return {frozenset((l.id, l.parent_id)) for l in ls if l.parent_id is not None}
 
         if _edges(links_mst) != _edges(links):
-            raise NotImplementedError(
-                "the motion tree and the proximity MST disagree, and arbitrating them needs "
-                f"a chain-fit probe that is not ported yet ({_CHAIN_ITEM}); pass tree='mst'")
+            # the two topology hypotheses disagree: a composite joint
+            # modelled as one revolute cannot track the clouds, so the
+            # short chain fit's loss picks the true tree
+            if refine_frames is None:
+                refine_frames = _load_refine_frames(cfg, end_video)
+            links = _select_tree_by_chain_fit(
+                {"motion": links, "proximity-mst": links_mst},
+                cms, refine_frames[0], refine_frames[1], num_steps, verbose, device=dev,
+            )
     else:
         links = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
     # cms are already sliced to [start_steps:end_steps]; index them 0-based
     joints = estimate_joints_from_tree(links, cms, 0, num_steps, interval=4)
+
+    if refine == "chain" and joints:
+        if refine_frames is None:
+            refine_frames = _load_refine_frames(cfg, end_video)
+        links, joints, dof = _refine_chain_loop(
+            links, joints, cms, refine_frames, num_steps, dof,
+            refine_steps=refine_steps, chain_balance=chain_balance,
+            canonical_frames=canonical_frames, chain_anchors=chain_anchors,
+            chain_trunc=chain_trunc, freeze_prune=freeze_prune, prune_deg=prune_deg,
+            drift_prune=drift_prune, drift_theta_deg=drift_theta_deg, drift_conc=drift_conc,
+            drift_spread_deg=drift_spread_deg, coart_merge=coart_merge, verbose=verbose,
+            device=dev)
 
     # link artifacts + meshes from the first sequence only.  Order by link
     # id: the URDF writer references {id:04}.stl, while the tree list is in

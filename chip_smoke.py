@@ -42,7 +42,21 @@ Phases, each of which fails the run on error:
    and the loss;
 8. the large-cloud path: one sequence of 3 frames of a synthetic 3-link
    hinged chain at 20,000 points per frame through ``run_registration``;
-   check that every search took the accumulator kernel, and the loss.
+   check that every search took the accumulator kernel, and the loss;
+9. the ``urdf`` stage with the JAX package's defaults on the artifacts of
+   phase 4 (the 1,200-step kinematic-chain fit in its veto loop, the motion
+   tree arbitrated against the MST, with the unknown DoF the probe ladder):
+   known DoF, then unknown; print the fits, veto passes, freeze deltas and
+   the launches by shape; check that every fit lowered its loss, the URDF
+   and that the searches went through the accumulator, min-only and
+   one-directional kernels; 9b: wall and device time of a chain-fit step on
+   each build's links;
+10. the chain fit's opt-in options once (two anchors, a three-step
+    canonical union, the truncated Chamfer; 100 steps).
+
+Phase 3 also holds the three kernels of a chain-fit step (S = 50 clouds of
+6 x 1,024 model points against the frames) against their plain versions
+and times them there.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository around it.
@@ -51,6 +65,7 @@ repository around it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -88,6 +103,10 @@ LARGE_N = 20000
 # (S, N, M) of a link-ICP launch of the urdf stage: links x the largest link
 # cloud, against itself (phase 6 prints the shapes it launched)
 LINK_ICP_SHAPE = (6, 2242, 2242)
+# (S, N) of a gradient step of the urdf stage's chain fit: 5 sequences x 10
+# steps in one batch, 6 links x 1,024 model points, against the frames
+# (M = the main path's padded frame size)
+CHAIN_S, CHAIN_N = 50, 6 * 1024
 
 
 # the kernels whose inner loops phase 2 counts (mangled-name fragments): the
@@ -380,12 +399,16 @@ def check_kernels(dev, n_main: int) -> dict:
         xc, yc = _case(np.random.default_rng(4), Sc, Nc, Mc, dev, False)
         wrapper = _time_ms(lambda: knn.nn_search(xc, yc, 2))
         device = _device_ms(lambda: knn.nn_search(xc, yc, 2))
+        library = _time_ms(lambda: torch.cdist(xc, yc).min(-1), reps=5)
         bound = _bound_ms(Sc, Nc, Mc, 4 + 8, both_directions=False)
         print(f"  time nn           S={Sc} N={Nc} M={Mc} norm=2 ({label}): wrapper "
-              f"{wrapper:.4f} ms, device {device:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{wrapper:.4f} ms, device {device:.4f} ms, library (cdist+min) {library:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}), "
               f"unfused floor {_unfused_floor_ms(Sc, Nc, Mc):.4f} ms")
         _print_plan(knn.plan_bidir(Sc, Nc, Mc, sms, "nn"), sms)
         del xc, yc
+        torch.cuda.empty_cache()
+    timing["chain"] = _check_chain_shape(dev, n_main, sms)
 
     # the accumulator kernel at the large-cloud shape, and both indexed
     # kernels side by side at both sizes: what the dispatch rule rests on
@@ -445,6 +468,8 @@ def check_kernels(dev, n_main: int) -> dict:
 
     keys = {"nn_bidir": "bidir", "nn_min_bidir": "min", "nn": "nn", "nn_bidir_acc": "acc"}
     for name, t in timing.items():
+        if name not in keys:
+            continue
         print(f"  time {name:12s} {t['shape']}: kernel {t['ms']:.4f} ms (device "
               f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library (cdist+min) "
               f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
@@ -460,6 +485,87 @@ def _print_plan(plan, sms: int) -> None:
           f"{plan.blocks_per_sm:.2f} a SM on {sms} SMs, {plan.resident} resident a SM, "
           f"{plan.waves:.2f} waves, {plan.shared_bytes} bytes of shared memory, "
           f"{plan.scratch_bytes / 1e6:.1f} MB of scratch")
+
+
+def _check_chain_shape(dev, n_main: int, sms: int) -> dict:
+    """The search of one chain-fit gradient step (S = 50 clouds of 6 x 1,024
+    model points against the frames, L1, masked rows and forced ties): the
+    accumulator kernel (which the dispatch takes here), the per-tile kernel
+    forced onto the shape, and the min-only kernel of the freeze probe's
+    forward-only evaluations, each exact against its plain version, and
+    timed with its plain version, one library call and the bound.  Returns
+    kernel -> measurements, for the kernels line."""
+    from autourdf_tpu_torch.ops import knn
+
+    S, N, M = CHAIN_S, CHAIN_N, n_main
+    x, y = _case(np.random.default_rng(9), S, N, M, dev, True)
+    ref = knn._nn_bidir_plain(x, y, 1)
+    rmin = knn._nn_min_bidir_plain(x, y, 1)
+    pick = knn.pick_bidir_plan(S, N, M, sms)
+    fns = {"nn_bidir_acc": lambda: knn.nn_search_bidirectional(x, y, 1),
+           "nn_bidir": lambda: knn._nn_bidir_cuda(x, y, 1),
+           "nn_min_bidir": lambda: knn.nn_min_bidirectional(x, y, 1)}
+    before = dict(knn.launch_counts)
+    got = {k: f() for k, f in fns.items()}
+    took = [k for k in knn.launch_counts if knn.launch_counts[k] > before[k]]
+    errs = {k: max(_max_abs(got[k][0], ref[0]), _max_abs(got[k][2], ref[2]))
+            for k in ("nn_bidir_acc", "nn_bidir")}
+    same = {k: all(torch.equal(a, b) for a, b in zip(got[k], ref)) for k in errs}
+    errs["nn_min_bidir"] = max(_max_abs(got["nn_min_bidir"][0], rmin[0]),
+                               _max_abs(got["nn_min_bidir"][1], rmin[1]))
+    same["nn_min_bidir"] = errs["nn_min_bidir"] == 0.0
+    print(f"  chain shape S={S} N={N} M={M} norm=1: dispatch picks {pick.kernel} (per-tile "
+          f"scratch would be {S * -(-N // knn.plan_bidir(S, N, M, sms, 'nn_bidir').rows) * M * 8 / 1e6:.1f} MB"
+          f" > ACC_SCRATCH_BYTES {knn.ACC_SCRATCH_BYTES / 1e6:.1f} MB); launched {sorted(took)}; "
+          f"equal to plain {same}")
+    if pick.kernel != "nn_bidir_acc" or not all(same.values()):
+        _fail(f"chain shape: dispatch took {pick.kernel}, exactness {same}")
+    del got, ref, rmin
+    torch.cuda.empty_cache()
+
+    def lib_bidir():
+        d = torch.cdist(x, y, p=1)
+        return d.min(-1), d.min(-2)
+
+    def lib_min():
+        d = torch.cdist(x, y, p=1)
+        return d.amin(-1), d.amin(-2)
+
+    library = {"bidir": _time_ms(lib_bidir, reps=3, warm=1)}
+    torch.cuda.empty_cache()
+    library["min"] = _time_ms(lib_min, reps=3, warm=1)
+    torch.cuda.empty_cache()
+    out = {}
+    # wrapper times in turns: accumulator, per-tile, per-tile, accumulator
+    order = ("nn_bidir_acc", "nn_bidir", "nn_bidir", "nn_bidir_acc")
+    wall = [_time_ms(fns[k], reps=10) for k in order]
+    walls = {"nn_bidir_acc": (wall[0], wall[3]), "nn_bidir": (wall[1], wall[2]),
+             "nn_min_bidir": (_time_ms(fns["nn_min_bidir"], reps=10),)}
+    for k in fns:
+        by = _device_ms_by_kernel(fns[k], reps=5)
+        plain = (knn._nn_min_bidir_plain if k == "nn_min_bidir" else knn._nn_bidir_plain)
+        bound = _bound_ms(S, N, M, 4 if k == "nn_min_bidir" else 4 + 8)
+        out[k] = dict(shape=f"S={S} N={N} M={M} norm=1", ms=min(walls[k]),
+                      device_ms=sum(by.values()), kernel_device_ms=_sweep_ms(by, k),
+                      plain_ms=_time_ms(lambda: plain(x, y, 1), reps=2, warm=1),
+                      library_ms=library["min" if k == "nn_min_bidir" else "bidir"],
+                      bound_ms=bound[0], bound_by=bound[1], max_abs_err=errs[k],
+                      unfused_floor_ms=_unfused_floor_ms(S, N, M))
+        torch.cuda.empty_cache()
+        t = out[k]
+        print(f"  time {k:12s} chain shape S={S} N={N} M={M} norm=1: wrapper "
+              f"{' / '.join(f'{w:.4f}' for w in walls[k])} ms, device {t['device_ms']:.4f} ms "
+              f"(kernel alone {t['kernel_device_ms']:.4f} ms, {len(by)} device kernels), plain "
+              f"{t['plain_ms']:.4f} ms, library (cdist+min) {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), unfused floor "
+              f"{t['unfused_floor_ms']:.4f} ms")
+        _print_plan(knn.plan_bidir(S, N, M, sms, k), sms)
+    print(f"  per-tile vs accumulator at the chain shape: device time per-tile "
+          f"{out['nn_bidir']['device_ms']:.4f} ms, accumulator {out['nn_bidir_acc']['device_ms']:.4f} "
+          f"ms ({out['nn_bidir_acc']['device_ms'] / out['nn_bidir']['device_ms']:.3f} of per-tile)")
+    del x, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def _check_new_kernel_shapes(dev, n_main: int, norm: int) -> dict:
@@ -741,6 +847,46 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
     return {"counts": counts, "n": N, "stats": stats, "cfg": cfg}
 
 
+@contextlib.contextmanager
+def _launch_shapes(shapes: collections.Counter):
+    """Count the launches of the search kernels inside the block by (kernel,
+    S, N, M, norm)."""
+    from autourdf_tpu_torch.ops import knn
+
+    launch = knn._launch_sweep
+
+    def recording(x, y, norm, plan):
+        shapes[(plan.kernel, x.shape[0], x.shape[1], y.shape[1], norm)] += 1
+        return launch(x, y, norm, plan)
+
+    knn._launch_sweep = recording
+    try:
+        yield shapes
+    finally:
+        knn._launch_sweep = launch
+
+
+def _check_urdf(out: dict, label: str) -> np.ndarray:
+    """The URDF of a build: ``links - 1`` joints with finite unit axes and a
+    non-empty mesh a link; returns the axes."""
+    robot = ET.parse(out["urdf_path"]).getroot()
+    links, joints = robot.findall("link"), robot.findall("joint")
+    stls = [m.get("filename") for m in robot.iter("mesh")]
+    axes = np.array([[float(v) for v in j.find("axis").get("xyz").split()] for j in joints])
+    if len(links) != out["num_links"] or len(joints) != out["num_links"] - 1:
+        _fail(f"URDF has {len(links)} links and {len(joints)} joints for "
+              f"{out['num_links']} links ({label})")
+    if out["num_links"] < 2:
+        _fail(f"no articulation found ({label})")
+    bad = [f for f in stls if not (os.path.exists(f) and os.path.getsize(f) > 84)]
+    if bad or len(set(stls)) != out["num_links"]:
+        _fail(f"missing or empty meshes: {bad[:3]} ({label})")
+    if not np.all(np.isfinite(axes)) or not np.allclose(np.linalg.norm(axes, axis=1), 1.0,
+                                                         atol=1e-6):
+        _fail(f"a joint axis is not a finite unit vector ({label}): {axes.tolist()}")
+    return axes
+
+
 def run_urdf_stage(dev, cfg) -> dict:
     """Phase 6 (Path B): structure -> joints -> meshes -> URDF from the
     artifacts of phase 4, with the known DoF and with the DoF search."""
@@ -752,40 +898,18 @@ def run_urdf_stage(dev, cfg) -> dict:
                       ("unknown DoF, no probe", dict(unknown_dof=True, dof_probe=False))):
         before = knn.launch_counts["nn"]
         shapes: collections.Counter = collections.Counter()
-        launch = knn._launch_sweep
-
-        def recording(x, y, norm, plan):
-            shapes[(plan.kernel, x.shape[0], x.shape[1], y.shape[1], norm)] += 1
-            return launch(x, y, norm, plan)
-
-        knn._launch_sweep = recording       # the shapes this build launches
         t0 = time.time()
-        try:
+        with _launch_shapes(shapes):        # the shapes this build launches
             out = workflow.run_build_urdf(cfg, refine="none", tree="mst", end_video=5,
                                           verbose=False, device=dev, **kw)
-        finally:
-            knn._launch_sweep = launch
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
         launched = knn.launch_counts["nn"] - before
         print(f"  {label}: launches by (kernel, S, N, M, norm): {dict(shapes.most_common())}")
-        robot = ET.parse(out["urdf_path"]).getroot()
-        links, joints = robot.findall("link"), robot.findall("joint")
-        stls = [m.get("filename") for m in robot.iter("mesh")]
-        axes = np.array([[float(v) for v in j.find("axis").get("xyz").split()] for j in joints])
-        print(f"  {label}: {out['num_links']} links, dof {out['dof']}, {len(joints)} joints, "
-              f"{len(set(stls))} meshes, {seconds:.3f} s, nn launches {launched}")
-        if len(links) != out["num_links"] or len(joints) != out["num_links"] - 1:
-            _fail(f"URDF has {len(links)} links and {len(joints)} joints for "
-                  f"{out['num_links']} links ({label})")
-        if out["num_links"] < 2:
-            _fail(f"no articulation found ({label})")
-        bad = [f for f in stls if not (os.path.exists(f) and os.path.getsize(f) > 84)]
-        if bad or len(set(stls)) != out["num_links"]:
-            _fail(f"missing or empty meshes: {bad[:3]} ({label})")
-        if not np.allclose(np.linalg.norm(axes, axis=1), 1.0, atol=1e-6):
-            _fail(f"a joint axis is not a unit vector ({label})")
-        if not np.all(np.isfinite(axes)) or launched < 1:
+        axes = _check_urdf(out, label)
+        print(f"  {label}: {out['num_links']} links, dof {out['dof']}, {len(axes)} joints, "
+              f"{seconds:.3f} s, nn launches {launched}")
+        if launched < 1:
             _fail(f"the urdf stage did not go through the nn kernel ({label})")
     return {"counts": dict(knn.launch_counts)}
 
@@ -951,6 +1075,169 @@ def profile_epochs(dev, n: int, epochs: int = 20) -> None:
         print(f"    {ms:.4f} ms x{cnt}  {key[:90]}")
 
 
+@contextlib.contextmanager
+def _chain_fits(fits: list):
+    """Record every chain fit inside the block: who called it (the veto loop
+    through refine_chain_multi_anchor, the tree arbitration, the probe
+    ladder's ``loss``), its steps and model points, wall seconds, first and
+    last loss, freeze deltas and subtree shares."""
+    from autourdf_tpu_torch.joints import chain
+
+    inner = chain.refine_chain
+
+    def recording(*a, **k):
+        caller = sys._getframe(1).f_code.co_name
+        t0 = time.time()
+        refined, res = inner(*a, **k)
+        losses = res.step_losses
+        fits.append(dict(caller=caller, steps=len(losses), points=k.get("points_per_link", 768),
+                         seconds=time.time() - t0, first=float(losses[0]) if len(losses) else None,
+                         last=res.loss, freeze=res.freeze_deltas, share=res.subtree_share,
+                         joints=len(refined)))
+        return refined, res
+
+    chain.refine_chain = recording
+    try:
+        yield fits
+    finally:
+        chain.refine_chain = inner
+
+
+_FIT_KIND = {"refine_chain_multi_anchor": "chain fit (veto loop)",
+             "_select_tree_by_chain_fit": "tree arbitration", "loss": "probe ladder"}
+
+
+def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
+    """Phase 9: workflow.run_build_urdf with the JAX package's defaults
+    (refine="chain" with 1,200 steps and the fit -> veto -> prune -> refit
+    loop, tree="motion" arbitrated against the MST, the probe ladder with
+    the unknown DoF) on the artifacts of phase 4, known DoF then unknown.
+    Returns the path's counts and the builds' outputs by label."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.ops import knn
+
+    knn.reset_launch_counts()
+    outs = {}
+    for label, kw in (("known DoF", dict(unknown_dof=False)),
+                      ("unknown DoF, probe ladder", dict(unknown_dof=True))):
+        shapes: collections.Counter = collections.Counter()
+        fits: list = []
+        before = dict(knn.launch_counts)
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        with _launch_shapes(shapes), _chain_fits(fits):
+            out = workflow.run_build_urdf(cfg, end_video=5, verbose=False, device=dev, **kw)
+        torch.cuda.synchronize(dev)
+        seconds = time.time() - t0
+        outs[label] = out
+        launched = {k: knn.launch_counts[k] - before[k] for k in knn.launch_counts}
+        axes = _check_urdf(out, label)
+        print(f"  {label}: {seconds:.3f} s wall; {out['num_links']} links, dof {out['dof']}, "
+              f"{len(axes)} joints; launches {launched}")
+        by_kind: dict = {}
+        for f in fits:
+            k = by_kind.setdefault(_FIT_KIND.get(f["caller"], f["caller"]),
+                                   dict(fits=0, steps=0, seconds=0.0))
+            k["fits"] += 1
+            k["steps"] += f["steps"]
+            k["seconds"] += f["seconds"]
+        for kind, k in by_kind.items():
+            print(f"    {kind}: {k['fits']} fits, {k['steps']} steps, {k['seconds']:.3f} s, "
+                  f"{1e3 * k['seconds'] / max(k['steps'], 1):.3f} ms a step (set-up included)")
+        vetoes = [f for f in fits if f["caller"] == "refine_chain_multi_anchor"]
+        print(f"    veto passes: {len(vetoes)}; per pass (steps, joints, first loss, last loss): "
+              f"{[(f['steps'], f['joints'], round(f['first'], 6), round(f['last'], 6)) for f in vetoes]}")
+        last = vetoes[-1]
+        print(f"    last pass: freeze deltas {np.round(last['freeze'], 4).tolist()}, "
+              f"subtree shares {np.round(last['share'], 4).tolist()}, normalised "
+              f"{np.round(last['freeze'] / np.maximum(last['share'], 1e-6), 3).tolist()}")
+        print(f"    launches by (kernel, S, N, M, norm): {dict(shapes.most_common(12))}"
+              + (f" and {len(shapes) - 12} more shapes" if len(shapes) > 12 else ""))
+        if not vetoes or not all(f["last"] < f["first"] for f in vetoes):
+            _fail(f"a chain fit did not lower its loss ({label})")
+        if any(f["steps"] != 1200 for f in vetoes):
+            _fail(f"the default chain fit ran {[f['steps'] for f in vetoes]} steps ({label})")
+        if kw["unknown_dof"] and not any(f["caller"] == "loss" for f in fits):
+            _fail("the unknown-DoF build did not run the probe ladder")
+        for k in ("nn_bidir_acc", "nn_min_bidir", "nn"):
+            if launched[k] < 1:
+                _fail(f"the default urdf stage did not launch {k} ({label})")
+    return {"counts": dict(knn.launch_counts)}, outs
+
+
+def profile_chain_steps(dev, cfg, out: dict) -> None:
+    """Phase 9b: where a chain-fit step's time goes, on a build's final links
+    and joints: wall ms a step (120 minus 20 steps, no profiler), the
+    device's busy ms a step and its kernels (torch.profiler, 60 minus 20
+    steps), the idle share and the search kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.joints.chain import refine_chain
+
+    cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
+    frames, fmasks = workflow._load_refine_frames(cfg, 5)
+
+    def fit(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        refine_chain(out["links"], out["joints"], cms, frames, steps=steps, points_per_link=1024,
+                     frame_masks=fmasks, freeze_probe=False, device=dev)
+        torch.cuda.synchronize(dev)
+        return time.time() - t0
+
+    fit(5)
+    wall_ms = 1e3 * (fit(120) - fit(20)) / 100
+    busy = {}
+    for steps in (20, 60):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fit(steps)
+        busy[steps] = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+    per_step = {k: (busy[60].get(k, 0.0) - busy[20].get(k, 0.0)) / 40 for k in busy[60]}
+    busy_ms = sum(per_step.values())
+    search = sum(v for k, v in per_step.items() if "nn_" in k and "_kernel" in k)
+    S, T, N = frames.shape[:3]
+    print(f"  chain step (S*T={S * T}, {len(out['links'])} links x 1024 points, frames of {N} "
+          f"points): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, search kernels {search:.3f} ms "
+          f"({search / max(busy_ms, 1e-9):.3f} of busy)")
+    for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:.4f} ms a step  {key[:90]}")
+    if not (wall_ms > 0 and busy_ms > 0):
+        _fail("no chain-step time measured")
+
+
+def run_chain_options(dev, cfg) -> dict:
+    """Phase 10: the opt-in chain options once, 100 steps: chain_anchors=2,
+    canonical_frames=3 (the ICP polish of the canonical union), chain_trunc=2.0
+    (the truncated Chamfer)."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.ops import knn
+
+    knn.reset_launch_counts()
+    fits: list = []
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    with _chain_fits(fits):
+        out = workflow.run_build_urdf(cfg, unknown_dof=False, refine_steps=100, chain_anchors=2,
+                                      canonical_frames=3, chain_trunc=2.0, end_video=5,
+                                      verbose=False, device=dev)
+    torch.cuda.synchronize(dev)
+    counts = dict(knn.launch_counts)
+    axes = _check_urdf(out, "chain options")
+    fit_steps = [(f["caller"], f["steps"]) for f in fits]
+    print(f"  {time.time() - t0:.3f} s wall; {out['num_links']} links, {len(axes)} joints; fits "
+          f"{fit_steps}; launches {counts}")
+    anchored = [f for f in fits if f["caller"] == "refine_chain_multi_anchor"]
+    if len(anchored) < 2 or not all(f["last"] < f["first"] for f in anchored):
+        _fail(f"the anchored fits did not run or did not lower their loss: {fit_steps}")
+    if counts["nn_bidir_acc"] < 1 or counts["nn"] < 1:
+        _fail(f"the chain options did not launch the search kernels: {counts}")
+    return {"counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1010,12 +1297,22 @@ def main() -> int:
         paths["register_icp"] = run_icp_path(dev, roots["icp"])
         print("[8] large clouds: workflow.run_registration at 20,000 points per frame")
         paths["register_large"] = run_large_cloud_path(dev, roots["large"])
+        print("[9] path C: workflow.run_build_urdf with the defaults (chain fit, motion tree, "
+              "probe ladder) on the artifacts of [4]")
+        paths["urdf_default"], builds = run_default_urdf(dev, main_path["cfg"])
+        for label, out in builds.items():
+            print(f"[9b] where a chain-fit step's time goes ({label} build's links)")
+            profile_chain_steps(dev, main_path["cfg"], out)
+        print("[10] the chain fit's opt-in options: chain_anchors=2, canonical_frames=3, "
+              "chain_trunc=2.0, 100 steps")
+        paths["urdf_chain_options"] = run_chain_options(dev, main_path["cfg"])
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",
                "nn": "autourdf_tpu/ops/knn.py:54",
                "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233"}
     kernels = []
+    chain_shape = timing.pop("chain")
     for kname, t in timing.items():
         by_path = {pname: p["counts"][kname] for pname, p in paths.items()}
         kernels.append({
@@ -1027,6 +1324,8 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })
+        if kname in chain_shape:
+            kernels[-1]["at_chain_shape"] = chain_shape[kname]
         if kernels[-1]["launches"] < 1:
             _fail(f"kernel {kname} was launched on no path")
     for k in kernels:

@@ -328,3 +328,63 @@ def test_planning_constants_match_the_library_on_card(cuda):
                 knn.SWEEP_MAX_THREADS, knn.SHARED_LIMIT)
     assert tuple(lib.knn_sweep_constant(k) for k in range(5)) == mirrored
     assert lib.knn_sweep_constant(5) == -1
+
+
+# --- the kinematic-chain fit ---
+
+def _hinge_chain_inputs(T=6, step=0.2, seed=0):
+    """A 2-link hinge about z (3 clusters a link, 40 points a cluster) as a
+    CoordMap, noisy frames, and a joint estimate tilted 25 degrees off the
+    axis: the hinge of the CPU parity tests, built without the JAX package."""
+    from scipy.spatial.transform import Rotation as ScipyRot
+
+    from autourdf_tpu_torch.joints.screw import JointEstimate
+    from autourdf_tpu_torch.structure import CoordMap
+    from autourdf_tpu_torch.structure.tree import LinkNode
+
+    rng = np.random.default_rng(seed)
+    offs = np.array([[-0.5, 0, 0], [-0.35, 0.1, 0], [-0.2, -0.1, 0.05],
+                     [0.2, 0, 0], [0.4, 0.05, 0], [0.6, -0.05, 0.1]])
+    local = rng.normal(scale=0.05, size=(6, 40, 3))
+    mats = np.tile(np.eye(4), (T, 6, 1, 1))
+    points, labels, clouds = [], [], []
+    for t in range(T):
+        rot = ScipyRot.from_rotvec([0, 0, t * step]).as_matrix()
+        for k in range(6):
+            mats[t, k, :3, :3] = rot if k >= 3 else np.eye(3)
+            mats[t, k, :3, 3] = rot @ offs[k] if k >= 3 else offs[k]
+        points.append(local.reshape(-1, 3))
+        labels.append(np.repeat(np.arange(6), 40).astype(np.int32))
+        clouds.append(np.concatenate([local[k] @ mats[t, k, :3, :3].T + mats[t, k, :3, 3]
+                                      for k in range(6)]))
+    cm = CoordMap.from_arrays(mats, points, labels, clouds)
+    frames = (np.stack(clouds)[None] + rng.normal(scale=2e-3, size=(1, T, 240, 3))
+              ).astype(np.float32)
+    links = [LinkNode(id=0, cluster_idx={0, 1, 2}, parent_id=None, tree_id=0),
+             LinkNode(id=1, cluster_idx={3, 4, 5}, parent_id=0, tree_id=1)]
+    bad = ScipyRot.from_rotvec([0.44, 0, 0]).as_matrix() @ np.array([0, 0, 1.0])
+    joints = [JointEstimate(parent_link=0, child_link=1, local_axis=bad, local_pos=np.zeros(4),
+                            global_pos=np.array([0.02, -0.03, 0.0]), global_axis=bad)]
+    return links, joints, [cm], frames
+
+
+def test_refine_chain_on_card_matches_cpu(cuda):
+    """50 steps of the chain fit on the card (accumulator search forward,
+    index_add_ backward with float atomics) against the same fit on the CPU.
+    The atomics reorder the backward's sums, so the fits are not bit-equal;
+    they agree to 1e-4 relative in every step's loss and 1e-4 absolute in
+    the axis, origin and angles (the CPU parity tests' geometry tolerance)."""
+    from autourdf_tpu_torch.joints.chain import refine_chain
+
+    links, joints, cms, frames = _hinge_chain_inputs()
+    before = dict(knn.launch_counts)
+    out = {d: refine_chain(links, joints, cms, frames, steps=50, points_per_link=256, device=d)[1]
+           for d in ("cpu", cuda)}
+    assert knn.launch_counts["nn_bidir_acc"] + knn.launch_counts["nn_bidir"] \
+        >= before["nn_bidir_acc"] + before["nn_bidir"] + 50
+    assert knn.launch_counts["nn_min_bidir"] >= before["nn_min_bidir"] + 2   # the freeze probe
+    a, b = out[cuda], out["cpu"]
+    np.testing.assert_allclose(a.step_losses, b.step_losses, rtol=1e-4)
+    for f in ("axes", "origins", "thetas", "freeze_deltas"):
+        np.testing.assert_allclose(getattr(a, f), getattr(b, f), atol=1e-4, err_msg=f)
+    assert a.step_losses[-1] < a.step_losses[0]

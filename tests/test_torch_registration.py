@@ -189,11 +189,11 @@ def test_cli_register_and_unported_options(tmp_path, capsys):
     with pytest.raises(FileNotFoundError):
         cli.main(["register", "--mlp_icp", "--normal", "--seed-mode", "fps", "--device", "cpu",
                   "--data-root", str(tmp_path / "none")])
-    # what the urdf stage does not carry yet names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        cli.main(["urdf", "--device", "cpu"])                      # default --refine chain
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(["urdf", "--refine", "none", "--unknown-dof", "--device", "cpu"])
+    # so is every urdf option, the defaults (--refine chain, --tree motion,
+    # the probe ladder of --unknown-dof) included: no data, no stage
+    for extra in ([], ["--unknown-dof"], ["--refine", "none", "--unknown-dof"]):
+        with pytest.raises(FileNotFoundError):
+            cli.main(["urdf", "--device", "cpu", "--data-root", str(tmp_path / "none"), *extra])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")

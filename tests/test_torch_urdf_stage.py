@@ -3,8 +3,9 @@ the URDF writer, and the slice as a whole.
 
 Whole slice: a small synthetic hinge is registered by the JAX package's
 ``run_registration``; its ``part/`` artifacts and raw clouds then go through
-``run_build_urdf(refine="none", tree="mst")`` of both packages, each on its
-own copy of the data root.  Everything after the registration is float64
+``run_build_urdf`` of both packages, each on its own copy of the data root:
+with the defaults (the chain fit, short; the motion tree; with the unknown
+DoF the probe ladder, short) and with ``refine="none", tree="mst"``.  Everything after the registration is float64
 numpy in both packages except the carry test's search, the link ICP and the
 screw decomposition (fp32): link count and tree must be equal, joint axes
 and origins agree to 1e-4 (the link ICP's tolerance does not reach them;
@@ -187,6 +188,10 @@ def _hinge_cloud_frames(num_frames, step, n=300, seed=0):
     return out
 
 
+# chain steps of the default builds (the JAX default is 1,200)
+SLICE_STEPS = 20
+
+
 @pytest.fixture(scope="module")
 def hinge_slice(tmp_path_factory):
     """A hinge registered by the JAX package, then built into a URDF by both."""
@@ -201,16 +206,21 @@ def hinge_slice(tmp_path_factory):
     jworkflow.run_registration(cfg_j, chamfer_backend="xla", verbose=False)
     shutil.copytree(root / "data_j", root / "data_t")
     cfg_t = tconfig.PipelineConfig(data_root=str(root / "data_t"), **kw)
-    build = dict(refine="none", tree="mst", end_video=2, verbose=False)
+    parity = dict(refine="none", tree="mst")
     out = {}
-    for label, extra in (("known", dict(unknown_dof=False)),
-                         ("unknown", dict(unknown_dof=True, dof_probe=False))):
-        out[label] = (jworkflow.run_build_urdf(cfg_j, **build, **extra),
-                      tworkflow.run_build_urdf(cfg_t, device="cpu", **build, **extra))
+    # the default builds first: the last build's files stay on disk
+    for label, extra in (("default known", dict(unknown_dof=False, refine_steps=SLICE_STEPS)),
+                         ("default unknown", dict(unknown_dof=True, refine_steps=SLICE_STEPS,
+                                                  dof_probe_steps=6, dof_probe_points=32)),
+                         ("known", dict(unknown_dof=False, **parity)),
+                         ("unknown", dict(unknown_dof=True, dof_probe=False, **parity))):
+        build = dict(end_video=2, verbose=False, **extra)
+        out[label] = (jworkflow.run_build_urdf(cfg_j, **build),
+                      tworkflow.run_build_urdf(cfg_t, device="cpu", **build))
     return cfg_j, cfg_t, out
 
 
-@pytest.mark.parametrize("label", ["known", "unknown"])
+@pytest.mark.parametrize("label", ["known", "unknown", "default known", "default unknown"])
 def test_urdf_slice_structure_and_joints_match_jax(hinge_slice, label):
     _, _, out = hinge_slice
     oj, ot = out[label]
@@ -224,7 +234,7 @@ def test_urdf_slice_structure_and_joints_match_jax(hinge_slice, label):
         assert (a.parent_link, a.child_link) == (b.parent_link, b.child_link)
         for f in ("global_axis", "global_pos", "local_axis", "local_pos"):
             np.testing.assert_allclose(getattr(a, f), getattr(b, f), atol=1e-4, err_msg=f)
-    if label == "known":
+    if label in ("known", "default known"):
         assert ot["num_links"] == 2 and abs(abs(ot["joints"][0].global_axis[2]) - 1) < 0.05
 
 
@@ -264,26 +274,76 @@ def _write_fixture_dataset(cfg, cms):
 
 
 def test_unported_urdf_options_raise_naming_their_roadmap_item(tmp_path):
+    """The options that raised NotImplementedError until the chain fit was
+    ported (the default ``refine="chain"``, the DoF probe ladder, the tree
+    arbitration) now run; an unknown ``refine`` still raises ValueError.
+
+    On the wrist trap the motion tree and the proximity MST disagree.  The
+    arbitration (``_select_tree_by_chain_fit``) picks the same tree in both
+    packages from per-candidate probe losses equal to 1e-5 relative (8 probe
+    steps here; the stage runs 100, where the two packages' fits on this
+    input part beyond that: ROADMAP.md Queue 3), and the port's default
+    build runs it end to end.  The trap carries registration error (see
+    test_torch_chain.jittered)."""
+    import autourdf_tpu.joints.chain as jchain
+    import autourdf_tpu_torch.joints.chain as tchain
+    from autourdf_tpu.structure import cluster_mst as j_mst
+    from autourdf_tpu.structure import kinematics_tree as j_tree
+    from autourdf_tpu.structure import motion_tree as j_motion
+    from test_torch_chain import jittered, port_links
+    from test_torch_structure import coord_map_from_jax
+
     _register_robot("toy_trap", 7, 3, 0.03)
     _register_robot("toy_hinge_fix", 6, 1, 0.03)
+    cms = [jittered(make_wrist_trap_chain(seed=s), seed=s) for s in (0, 1)]
     trap = tconfig.PipelineConfig(robot="toy_trap", data_root=str(tmp_path / "trap"),
                                   num_videos=2, end_steps=8)
-    _write_fixture_dataset(trap, [make_wrist_trap_chain(seed=s) for s in (0, 1)])
+    _write_fixture_dataset(trap, cms)
     base = dict(unknown_dof=False, end_video=2, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tworkflow.run_build_urdf(trap, **base)                         # default refine="chain"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tworkflow.run_build_urdf(trap, refine="none", unknown_dof=True, end_video=2,
-                                 verbose=False, device="cpu")         # default dof_probe=True
-    # the motion tree and the MST disagree on the wrist trap: needs the chain fit
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tworkflow.run_build_urdf(trap, refine="none", tree="motion", **base)
     with pytest.raises(ValueError):
         tworkflow.run_build_urdf(trap, refine="polish", **base)
-    out = tworkflow.run_build_urdf(trap, refine="none", tree="mst", **base)
-    assert out["num_links"] == 4 and len(out["joints"]) == 3
 
-    # on the hinge the two trees agree, so tree="motion" works and equals tree="mst"
+    groups = [{0, 1}, {2, 3}, {4}, {5, 6}]
+    cand_j = {"motion": j_motion(cms, groups, 8), "proximity-mst": j_tree(cms[0], groups,
+                                                                          j_mst(cms[0]))}
+    assert ({frozenset((l.id, l.parent_id)) for l in cand_j["motion"] if l.parent_id is not None}
+            != {frozenset((l.id, l.parent_id)) for l in cand_j["proximity-mst"]
+                if l.parent_id is not None})
+    frames = np.stack([np.stack(cm.raw_clouds) for cm in cms]).astype(np.float32)
+    losses = {}
+    picks = {}
+    for label, mod, chain, cand, maps in (
+            ("j", jworkflow, jchain, cand_j, cms),
+            ("t", tworkflow, tchain, {k: port_links(v) for k, v in cand_j.items()},
+             [coord_map_from_jax(c) for c in cms])):
+        inner, out = chain.refine_chain, []
+
+        def recording(*a, **k):
+            refined, res = inner(*a, **k)
+            out.append(float(res.loss))
+            return refined, res
+
+        chain.refine_chain = recording
+        try:
+            kw = {} if label == "j" else dict(device="cpu")
+            picks[label] = mod._select_tree_by_chain_fit(cand, maps, frames, None, 8, False,
+                                                         probe_steps=8, **kw)
+        finally:
+            chain.refine_chain = inner
+        losses[label] = out
+    facts = lambda ls: sorted((l.id, l.parent_id, tuple(sorted(l.cluster_idx))) for l in ls)
+    assert facts(picks["t"]) == facts(picks["j"])
+    assert len(losses["t"]) == 2
+    np.testing.assert_allclose(losses["t"], losses["j"], rtol=1e-5)
+
+    # the default build (chain fit, short; motion tree, arbitrated)
+    out = tworkflow.run_build_urdf(trap, refine_steps=10, **base)
+    assert out["num_links"] >= 2 and len(out["joints"]) == out["num_links"] - 1
+    assert all(abs(np.linalg.norm(j.global_axis) - 1.0) < 1e-6 for j in out["joints"])
+    mst = tworkflow.run_build_urdf(trap, refine="none", tree="mst", **base)
+    assert mst["num_links"] == 4 and len(mst["joints"]) == 3
+
+    # on the hinge the two trees agree, so tree="motion" equals tree="mst"
     hinge = tconfig.PipelineConfig(robot="toy_hinge_fix", data_root=str(tmp_path / "hinge"),
                                    num_videos=2, end_steps=8)
     _write_fixture_dataset(hinge, [make_hinge_coordmap(seed=s) for s in (0, 1)])
@@ -312,3 +372,26 @@ def test_cli_urdf_on_cpu(tmp_path, capsys):
     assert len(root.findall("link")) == 2 and len(root.findall("joint")) == 1
     axis = np.array([float(v) for v in root.find("joint/axis").get("xyz").split()])
     assert abs(np.linalg.norm(axis) - 1.0) < 1e-9
+
+
+def test_cli_urdf_defaults_on_cpu(tmp_path, capsys):
+    """``cli urdf`` with the JAX CLI's defaults (chain fit, motion tree, and
+    with ``--unknown-dof`` the probe ladder at its 60 steps); the chain fit
+    cut to 10 steps."""
+    import json
+
+    from autourdf_tpu_torch import cli
+
+    _register_robot("toy_hinge_cli_defaults", 6, 1, 0.03)
+    cfg = tconfig.PipelineConfig(robot="toy_hinge_cli_defaults", data_root=str(tmp_path / "d"),
+                                 num_videos=2, end_steps=8)
+    _write_fixture_dataset(cfg, [make_hinge_coordmap(seed=s) for s in (0, 1)])
+    for extra in ([], ["--unknown-dof"]):
+        rc = cli.main(["urdf", "--robot", "toy_hinge_cli_defaults", "--data-root",
+                       str(tmp_path / "d"), "--end-steps", "8", "--end-video", "2",
+                       "--refine-steps", "10", "--device", "cpu", *extra])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and out["links"] == 2 and out["dof"] == 1 and os.path.exists(out["urdf"])
+        axis = np.array([float(v) for v in
+                         ET.parse(out["urdf"]).getroot().find("joint/axis").get("xyz").split()])
+        assert abs(np.linalg.norm(axis) - 1.0) < 1e-9 and abs(abs(axis[2]) - 1.0) < 0.05
