@@ -149,13 +149,21 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 def _pair_dist(x: torch.Tensor, y: torch.Tensor, norm: int) -> torch.Tensor:
-    """(S, n, 3), (S, m, 3) -> (S, n, m) distances, summed left to right."""
-    d0 = x[:, :, None, 0] - y[:, None, :, 0]
-    d1 = x[:, :, None, 1] - y[:, None, :, 1]
-    d2 = x[:, :, None, 2] - y[:, None, :, 2]
+    """(S, n, 3), (S, m, 3) -> (S, n, m) distances, summed left to right
+    (in place: one block and one scratch block of the result's size)."""
+    d = x[:, :, None, 0] - y[:, None, :, 0]
+    t = torch.empty_like(d)
     if norm == 1:
-        return d0.abs() + d1.abs() + d2.abs()
-    return d0 * d0 + d1 * d1 + d2 * d2
+        d.abs_()
+        for c in (1, 2):
+            torch.sub(x[:, :, None, c], y[:, None, :, c], out=t)
+            d += t.abs_()
+    else:
+        d.mul_(d)
+        for c in (1, 2):
+            torch.sub(x[:, :, None, c], y[:, None, :, c], out=t)
+            d += t.mul_(t)
+    return d
 
 
 def _nn_plain(x: torch.Tensor, y: torch.Tensor, norm: int, chunk: int = 1024):
@@ -168,10 +176,22 @@ def _nn_plain(x: torch.Tensor, y: torch.Tensor, norm: int, chunk: int = 1024):
     return torch.cat(ds, 1), torch.cat(idx, 1)
 
 
-def _nn_bidir_plain(x, y, norm: int):
-    dx, ix = _nn_plain(x, y, norm)
-    dy, iy = _nn_plain(y, x, norm)
-    return dx, ix, dy, iy
+def _nn_bidir_plain(x, y, norm: int, chunk: int = 1024):
+    """Both directions from one distance block per chunk: |y - x| is |x - y|
+    bit for bit, and a column's first argmin is kept across chunks (a later
+    chunk takes over only where it is strictly smaller)."""
+    dxs, ixs, dy, iy = [], [], None, None
+    for a in range(0, x.shape[1], chunk):
+        d = _pair_dist(x[:, a:a + chunk], y, norm)
+        dxs.append(d.amin(-1))
+        ixs.append(torch.argmin(d, dim=-1))
+        col, ci = d.amin(-2), torch.argmin(d, dim=-2) + a
+        if dy is None:
+            dy, iy = col, ci
+        else:
+            take = col < dy
+            dy, iy = torch.where(take, col, dy), torch.where(take, ci, iy)
+    return torch.cat(dxs, 1), torch.cat(ixs, 1), dy, iy
 
 
 def _nn_min_bidir_plain(x, y, norm: int, chunk: int = 1024):

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -399,10 +400,12 @@ def check_kernels(dev, n_main: int) -> dict:
         xc, yc = _case(np.random.default_rng(4), Sc, Nc, Mc, dev, False)
         wrapper = _time_ms(lambda: knn.nn_search(xc, yc, 2))
         device = _device_ms(lambda: knn.nn_search(xc, yc, 2))
+        plain = _time_ms(lambda: knn._nn_plain(xc, yc, 2), reps=5)
         library = _time_ms(lambda: torch.cdist(xc, yc).min(-1), reps=5)
         bound = _bound_ms(Sc, Nc, Mc, 4 + 8, both_directions=False)
         print(f"  time nn           S={Sc} N={Nc} M={Mc} norm=2 ({label}): wrapper "
-              f"{wrapper:.4f} ms, device {device:.4f} ms, library (cdist+min) {library:.4f} ms, "
+              f"{wrapper:.4f} ms, device {device:.4f} ms, plain {plain:.4f} ms, "
+              f"library (cdist+min) {library:.4f} ms, "
               f"bound {bound[0]:.4f} ms ({bound[1]}), "
               f"unfused floor {_unfused_floor_ms(Sc, Nc, Mc):.4f} ms")
         _print_plan(knn.plan_bidir(Sc, Nc, Mc, sms, "nn"), sms)
@@ -1075,36 +1078,56 @@ def profile_epochs(dev, n: int, epochs: int = 20) -> None:
         print(f"    {ms:.4f} ms x{cnt}  {key[:90]}")
 
 
+# the entry points that run chain fits, each with the label its fits get
+_FIT_ENTRIES = (("autourdf_tpu_torch.joints.chain", "refine_chain_multi_anchor", "veto loop"),
+                ("autourdf_tpu_torch.workflow", "_select_tree_by_chain_fit", "tree arbitration"),
+                ("autourdf_tpu_torch.structure", "probe_k_selection", "probe ladder"))
+
+
 @contextlib.contextmanager
 def _chain_fits(fits: list):
-    """Record every chain fit inside the block: who called it (the veto loop
-    through refine_chain_multi_anchor, the tree arbitration, the probe
-    ladder's ``loss``), its steps and model points, wall seconds, first and
-    last loss, freeze deltas and subtree shares."""
+    """Record every chain fit inside the block: the entry point it ran under
+    (``kind``: the veto loop's refine_chain_multi_anchor, the tree
+    arbitration, the probe ladder), its steps and model points, wall
+    seconds, first and last loss, freeze deltas and subtree shares."""
     from autourdf_tpu_torch.joints import chain
+
+    active: list = []
+    patched = []
+
+    def labelled(fn, kind):
+        def call(*a, **k):
+            active.append(kind)
+            try:
+                return fn(*a, **k)
+            finally:
+                active.pop()
+        return call
 
     inner = chain.refine_chain
 
     def recording(*a, **k):
-        caller = sys._getframe(1).f_code.co_name
         t0 = time.time()
         refined, res = inner(*a, **k)
         losses = res.step_losses
-        fits.append(dict(caller=caller, steps=len(losses), points=k.get("points_per_link", 768),
-                         seconds=time.time() - t0, first=float(losses[0]) if len(losses) else None,
-                         last=res.loss, freeze=res.freeze_deltas, share=res.subtree_share,
+        fits.append(dict(kind=active[-1] if active else "direct", steps=len(losses),
+                         points=k.get("points_per_link", 768), seconds=time.time() - t0,
+                         first=float(losses[0]) if len(losses) else None, last=res.loss,
+                         freeze=res.freeze_deltas, share=res.subtree_share,
                          joints=len(refined)))
         return refined, res
 
+    for mod_name, attr, kind in _FIT_ENTRIES:
+        mod = importlib.import_module(mod_name)
+        patched.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, labelled(getattr(mod, attr), kind))
     chain.refine_chain = recording
     try:
         yield fits
     finally:
         chain.refine_chain = inner
-
-
-_FIT_KIND = {"refine_chain_multi_anchor": "chain fit (veto loop)",
-             "_select_tree_by_chain_fit": "tree arbitration", "loss": "probe ladder"}
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
 
 
 def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
@@ -1136,15 +1159,14 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
               f"{len(axes)} joints; launches {launched}")
         by_kind: dict = {}
         for f in fits:
-            k = by_kind.setdefault(_FIT_KIND.get(f["caller"], f["caller"]),
-                                   dict(fits=0, steps=0, seconds=0.0))
+            k = by_kind.setdefault(f["kind"], dict(fits=0, steps=0, seconds=0.0))
             k["fits"] += 1
             k["steps"] += f["steps"]
             k["seconds"] += f["seconds"]
         for kind, k in by_kind.items():
             print(f"    {kind}: {k['fits']} fits, {k['steps']} steps, {k['seconds']:.3f} s, "
                   f"{1e3 * k['seconds'] / max(k['steps'], 1):.3f} ms a step (set-up included)")
-        vetoes = [f for f in fits if f["caller"] == "refine_chain_multi_anchor"]
+        vetoes = [f for f in fits if f["kind"] == "veto loop"]
         print(f"    veto passes: {len(vetoes)}; per pass (steps, joints, first loss, last loss): "
               f"{[(f['steps'], f['joints'], round(f['first'], 6), round(f['last'], 6)) for f in vetoes]}")
         last = vetoes[-1]
@@ -1157,7 +1179,7 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
             _fail(f"a chain fit did not lower its loss ({label})")
         if any(f["steps"] != 1200 for f in vetoes):
             _fail(f"the default chain fit ran {[f['steps'] for f in vetoes]} steps ({label})")
-        if kw["unknown_dof"] and not any(f["caller"] == "loss" for f in fits):
+        if kw["unknown_dof"] and not any(f["kind"] == "probe ladder" for f in fits):
             _fail("the unknown-DoF build did not run the probe ladder")
         for k in ("nn_bidir_acc", "nn_min_bidir", "nn"):
             if launched[k] < 1:
@@ -1227,10 +1249,10 @@ def run_chain_options(dev, cfg) -> dict:
     torch.cuda.synchronize(dev)
     counts = dict(knn.launch_counts)
     axes = _check_urdf(out, "chain options")
-    fit_steps = [(f["caller"], f["steps"]) for f in fits]
+    fit_steps = [(f["kind"], f["steps"]) for f in fits]
     print(f"  {time.time() - t0:.3f} s wall; {out['num_links']} links, {len(axes)} joints; fits "
           f"{fit_steps}; launches {counts}")
-    anchored = [f for f in fits if f["caller"] == "refine_chain_multi_anchor"]
+    anchored = [f for f in fits if f["kind"] == "veto loop"]
     if len(anchored) < 2 or not all(f["last"] < f["first"] for f in anchored):
         _fail(f"the anchored fits did not run or did not lower their loss: {fit_steps}")
     if counts["nn_bidir_acc"] < 1 or counts["nn"] < 1:
