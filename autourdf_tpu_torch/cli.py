@@ -1,9 +1,14 @@
-"""Command-line interface of the port: the ``register`` and ``urdf`` stages.
+"""Command-line interface of the port: the ``dataset``, ``register``,
+``urdf`` and ``evaluate`` stages and ``all`` of them in a row.
 
+    python -m autourdf_tpu_torch.cli dataset --robot wx200_5
     python -m autourdf_tpu_torch.cli register --robot wx200_real_5 --data-root data_real
     python -m autourdf_tpu_torch.cli register ... --mlp_icp --normal --seed-mode fps
     python -m autourdf_tpu_torch.cli urdf --robot wx200_real_5 --data-root data_real \\
         --end-video 5 [--unknown-dof]
+    python -m autourdf_tpu_torch.cli evaluate --robot wx200_5
+    python -m autourdf_tpu_torch.cli all --robot wx200_5   (dataset -> register -> urdf
+        -> evaluate)
     python -m autourdf_tpu_torch.cli <stage> ... --device cpu   (plain PyTorch path)
 
 ``urdf`` takes every flag of ``python -m autourdf_tpu.cli urdf`` with its
@@ -11,6 +16,12 @@ defaults: the kinematic-chain fit (``--refine chain``), the motion tree
 arbitrated against the proximity MST (``--tree motion``) and, with
 ``--unknown-dof``, the DoF probe ladder; ``--refine none --tree mst
 --no-dof-probe`` is the reference-parity build.
+
+Seeds are the JAX CLI's: ``--seed`` (default 2024) seeds the simulated
+dataset and the evaluation; ``register`` takes its own ``--seed`` (default
+0, the segmentation and the MLP init), and ``all`` registers at seed 0 and
+builds the URDF with the unknown DoF.  Unlike the JAX CLI, ``--pix`` is
+honoured (the JAX CLI accepts it and captures at 800 whatever it says).
 """
 
 from __future__ import annotations
@@ -52,9 +63,10 @@ def _cfg(args) -> PipelineConfig:
         robot=args.robot, data_root=args.data_root, step_size_deg=args.step_size,
         num_cameras=args.num_cameras, num_step=args.num_step, num_videos=args.num_video,
         num_points=args.num_points, num_seg=args.num_seg, seed_mode=args.seed_mode,
-        voxel_size=args.voxel_size, rot=getattr(args, "r", "q"),
+        voxel_size=args.voxel_size, seed=args.seed, rot=getattr(args, "r", "q"),
         epochs=getattr(args, "epochs", 300),
         end_steps=getattr(args, "end_steps", args.num_step),
+        noise=not getattr(args, "no_noise", False), pix=getattr(args, "pix", 800),
     )
 
 
@@ -129,6 +141,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="autourdf-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("dataset", help="generate multi-view point cloud sequences")
+    _add_common(p, 2024, "seed of numpy's stream (camera rigs) and of the trajectories "
+                         "and capture noise")
+    p.add_argument("--ground", action="store_true")
+    p.add_argument("--no_noise", action="store_true")
+    p.add_argument("--epoch", type=int, default=5, help="collision-free sequences")
+    p.add_argument("--pix", type=int, default=800)
+
     p = sub.add_parser("register", help="cluster registration over all sequences")
     _add_common(p, 0, "seed of the segmentation (seed) and MLP init (seed + 1)")
     p.add_argument("--r", type=str, default="q", choices=["q", "rpy", "dq", "6d"])
@@ -149,24 +169,76 @@ def main(argv=None) -> int:
     p.add_argument("--end-video", "--end_video", dest="end_video", type=int, default=1)
     _add_urdf_flags(p)
 
+    p = sub.add_parser("evaluate", help="joint accuracy + resim chamfer vs gt")
+    _add_common(p, 2024, "seed of the re-simulation's commands and camera rigs")
+    p.add_argument("--joint-map", type=str, default=None,
+                   help="path to a reference-format joint index map txt")
+    p.add_argument("--num-configs", type=int, default=3)
+    p.add_argument("--pred-ori", type=str, default=None,
+                   help="override predicted-URDF base euler 'r,p,y' (the registry value "
+                        "corrects the reference's rolled real scans; pass 0,0,0 for "
+                        "self-captured real-layout data)")
+
+    p = sub.add_parser("all", help="dataset -> register -> urdf -> evaluate")
+    _add_common(p, 2024, "seed of the dataset and the evaluation (registration: seed 0)")
+    p.add_argument("--r", type=str, default="q", choices=["q", "rpy", "dq", "6d"])
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--end-video", dest="end_video", type=int, default=5)
+    p.add_argument("--epoch", type=int, default=5)
+    p.add_argument("--pix", type=int, default=800)
+    p.add_argument("--ground", action="store_true")
+    p.add_argument("--no_noise", action="store_true")
+    _add_urdf_flags(p)
+
     args = parser.parse_args(argv)
     cfg = _cfg(args)
 
     from . import workflow
 
-    if args.cmd == "register":
+    if args.cmd == "dataset":
+        dirs = workflow.run_dataset(cfg, asset_root=args.asset_root, ground=args.ground,
+                                    epochs=args.epoch, device=args.device)
+        print(json.dumps({"sequences": dirs}))
+    elif args.cmd == "register":
         stats = workflow.run_registration(cfg, seed=args.seed, mlp_icp=args.mlp_icp,
                                           use_normals=args.normal,
                                           corr_every=args.corr_every, device=args.device)
         stats.pop("result")
         print(json.dumps(stats))
-    else:
+    elif args.cmd == "urdf":
         cfg = cfg.replace(start_steps=args.start_steps, end_steps=args.end_steps)
         out = workflow.run_build_urdf(cfg, unknown_dof=args.unknown_dof,
                                       end_video=args.end_video, device=args.device,
                                       **_urdf_kwargs(args))
         print(json.dumps({"urdf": out["urdf_path"], "links": out["num_links"],
                           "dof": out["dof"]}))
+    elif args.cmd == "evaluate":
+        import numpy as np
+
+        jm = np.loadtxt(args.joint_map, dtype=int) if args.joint_map else None
+        po = (tuple(float(v) for v in args.pred_ori.split(","))
+              if args.pred_ori else None)
+        out = workflow.run_evaluation(cfg, joint_map=jm, asset_root=args.asset_root,
+                                      num_configs=args.num_configs, pred_ori=po,
+                                      device=args.device)
+        print(json.dumps(out))
+    else:
+        workflow.run_dataset(cfg, asset_root=args.asset_root, ground=args.ground,
+                             epochs=args.epoch, device=args.device)
+        stats = workflow.run_registration(cfg, seed=0, device=args.device)
+        stats.pop("result")
+        out = workflow.run_build_urdf(cfg, unknown_dof=True, end_video=args.end_video,
+                                      device=args.device, **_urdf_kwargs(args))
+        ev = workflow.run_evaluation(cfg, asset_root=args.asset_root, device=args.device)
+        print(json.dumps({"urdf": out["urdf_path"], "dof": out["dof"],
+                          "links": out["num_links"],
+                          "dir_err_deg": ev["dir_mean"],
+                          "pos_err_m": ev["pos_mean"],
+                          "matched": ev.get("matched"),
+                          "total": ev.get("total"),
+                          "dir_mean_complete": ev.get("dir_mean_complete"),
+                          "chamfer": ev["chamfer_mean"],
+                          "chamfer_floor": ev["chamfer_floor"]}))
     return 0
 
 

@@ -1,7 +1,8 @@
 """Minimal PLY point-cloud I/O (binary little-endian + ascii).
 
-Copy of autourdf_tpu.io.ply without the native reader (``io/native.py``):
-numpy only, kept here so the port imports nothing of the JAX package.
+Copy of autourdf_tpu.io.ply, kept here so the port imports nothing of the
+JAX package: binary frames go through the native reader (``io/native.py``)
+when its library is built, the numpy reader otherwise.
 Writes binary f32 xyz (+ optional u8 rgb) — the same wire format Open3D
 emits, so clouds interchange with the reference's data trees.
 """
@@ -25,6 +26,12 @@ _PLY_TYPES = {
 
 def read_ply(path: str) -> np.ndarray:
     """Read xyz coordinates of the vertex element -> (N, 3) float32."""
+    from . import native
+
+    if native.available():
+        out = native.read_ply_native(path)
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.find(b"end_header\n")

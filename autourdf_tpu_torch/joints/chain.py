@@ -21,7 +21,7 @@ joint), fitted by Adam.
 
 Layout of a step: the S sequences x T steps are one batch, so the posed
 model ``(S*T, L*P, 3)`` meets the frames ``(S*T, N, 3)`` in one Chamfer call
-(the indexed bidirectional search forward, its ``index_add_`` rebuild
+(the indexed bidirectional search forward, its scatter-add rebuild
 backward); the rest poses ``[F_p(0)^-1 F_c(0)]`` do not depend on the
 parameters and are computed once per fit.  The loss stays on the device and
 is read only where the JAX host loop reads it: every ``PRINT_EVERY``

@@ -11,8 +11,8 @@ need for a mesh-repair pass entirely.
 Vertices land on edge midpoints (the 0.5 crossing of a binary field,
 matching marching cubes at threshold 0 on occupancy).
 
-Port of autourdf_tpu.mesh.marching: its numpy extractor, without the
-dispatch to the host C++ library.
+Port of autourdf_tpu.mesh.marching: the numpy extractor, and the dispatch
+to the host C++ library (``io/native.py``) with the same algorithm.
 """
 
 from __future__ import annotations
@@ -77,14 +77,18 @@ def marching_tetrahedra(volume: np.ndarray, voxel_size: float = 1.0,
 
     The volume is zero-padded internally so the output surface is closed.
     Vertex coordinates are in world units: ``origin + voxel_size * index``.
-    This is the numpy extractor of autourdf_tpu.mesh.marching; the JAX
-    package prefers a host C++ library with the same algorithm when it is
-    built, which the port does not carry (a host library, not a device
-    kernel: nothing on the card is hidden behind it).
+    Dispatches to the native C++ extractor when built (same algorithm).
     """
     vol = np.pad(np.asarray(volume, dtype=bool), 1)
     origin = np.zeros(3) if origin is None else np.asarray(origin, dtype=np.float64)
     origin = origin - voxel_size  # account for the pad
+
+    from ..io import native
+
+    nat = native.marching_tetrahedra_native(vol) if native.available() else None
+    if nat is not None:
+        verts, faces = nat
+        return TriMesh(verts * voxel_size + origin, faces)
 
     occ = vol
     nx, ny, nz = (np.array(vol.shape) - 1)

@@ -12,7 +12,7 @@ counts; masked points move to the ``PAD_COORD`` sentinel before the search
 so they are never matched.
 
 The gradient is a ``torch.autograd.Function``: the forward runs the indexed
-bidirectional search, the backward is the gather plus ``index_add_``
+bidirectional search, the backward is the gather plus scatter-add
 rebuild of ``_chamfer_cvjp_bwd`` — exactly the subgradient of the true
 Chamfer objective (the argmin is piecewise constant).  A call that needs no
 gradient runs the min-only kernel instead, as the JAX custom-VJP primal
@@ -58,16 +58,21 @@ def _gather_points(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_add_points(like: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``zeros_like(like).at[idx].add(vals)`` per batch element, via index_add_."""
+    """``zeros_like(like).at[idx].add(vals)`` per batch element.
+
+    ``index_put_`` with ``accumulate=True`` sorts the indices and sums each
+    target's values in their order, on the card as on the CPU, so the sums
+    are the same every run (``index_add_`` on the card adds with float
+    atomics in arrival order, and a registration would vary run to run)."""
     S, n = like.shape[0], like.shape[1]
     offs = torch.arange(S, device=idx.device)[:, None] * n
     out = torch.zeros((S * n, 3), dtype=like.dtype, device=like.device)
-    out.index_add_(0, (idx + offs).reshape(-1), vals.reshape(-1, 3))
+    out.index_put_(((idx + offs).reshape(-1),), vals.reshape(-1, 3), accumulate=True)
     return out.view(S, n, 3)
 
 
 class _ChamferFn(torch.autograd.Function):
-    """Batched Chamfer with the gather + index_add_ backward (S, N, 3)."""
+    """Batched Chamfer with the gather + scatter-add backward (S, N, 3)."""
 
     @staticmethod
     def forward(ctx, x, y, xm, ym, norm):

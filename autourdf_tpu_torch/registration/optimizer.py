@@ -32,13 +32,15 @@ def apply_pose_rows(rows: torch.Tensor, points: torch.Tensor, labels: torch.Tens
     """Per-point affine apply of per-cluster ``(..., K, 3, 4)`` pose rows to
     ``points (..., N, 3)`` with ``labels (..., N)``.
 
-    The JAX version selects rows with a one-hot matmul, a TPU workaround for
-    a slow gather backward; on the GPU the per-point selection is a gather
-    (its backward an index add), which picks the same values exactly.
+    Rows are selected with a one-hot matmul, as in the JAX version: the
+    selection is exact (one product by 1, the rest by 0), and its backward
+    is a matmul, whose sums come out the same every run on the card (a
+    gather's backward adds with float atomics there, in arrival order).
     """
     flat = rows.flatten(-2)                                            # (..., K, 12)
-    idx = labels[..., None].expand(labels.shape + (12,))
-    sel = torch.gather(flat, -2, idx).unflatten(-1, (3, 4))            # (..., N, 3, 4)
+    K = flat.shape[-2]
+    onehot = (labels[..., None] == torch.arange(K, device=labels.device)).to(flat.dtype)
+    sel = torch.matmul(onehot, flat).unflatten(-1, (3, 4))             # (..., N, 3, 4)
     return torch.sum(sel[..., :3] * points[..., None, :], dim=-1) + sel[..., 3]
 
 

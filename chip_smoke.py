@@ -26,8 +26,10 @@ Phases, each of which fails the run on error:
    path on the CPU; time each kernel, its plain version and one library
    call, beside the bound and the floor of unfused fp32 work, and the
    per-tile and accumulator kernels side by side at both sizes, wrapper time
-   and device time (the dispatch rule of ops/knn.py), and the
-   one-directional kernel also at the carry test's and at a link-ICP shape;
+   and device time (the dispatch rule of ops/knn.py), the one-directional
+   kernel also at the carry test's and at a link-ICP shape, and the
+   one-directional (squared L2) and min-only (L1) kernels at the evaluation's
+   re-simulation shape, S=1, N=M=10,000;
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
@@ -52,7 +54,20 @@ Phases, each of which fails the run on error:
    one-directional kernels; 9b: wall and device time of a chain-fit step on
    each build's links;
 10. the chain fit's opt-in options once (two anchors, a three-step
-    canonical union, the truncated Chamfer; 100 steps).
+    canonical union, the truncated Chamfer; 100 steps);
+11. the closed loop: ``autourdf_tpu_torch.cli.main(["all", ...])`` at the JAX
+    CLI's defaults on the tracked wx200 estimate
+    (``data_ab5/urdf/wx200_5_20_seg``), given as a parameters JSON: simulate
+    5 sequences x 10 frames (20 cameras at 800 px, 5,000 of 200,000 surface
+    points), register them, build the URDF with the unknown DoF and the
+    defaults, score it (joint errors, re-simulation Chamfer at 3
+    configurations, the gt-vs-gt floor); check every stage's output, the
+    telemetry and that all four kernels were launched; time each stage, one
+    capture and its farthest-point pick, and the native meshing against the
+    numpy extractor (the native host library must build).
+
+Phase 4c registers the first 2 sequences x 4 frames of the real scans twice
+at seed 0 and fails unless the two runs are equal, bit for bit.
 
 Phase 3 also holds the three kernels of a chain-fit step (S = 50 clouds of
 6 x 1,024 model points against the frames) against their plain versions
@@ -93,7 +108,7 @@ OPS_PER_PAIR = 9
 UNFUSED_FP32_OPS = PEAK_FP32_FLOPS / 2
 # Chamfer value and gradient, kernel path on the card vs the plain path on
 # the CPU: the same matched neighbours (exact indices), but sums in another
-# order (and index_add_ atomics on the card) move the last bits.
+# order move the last bits.
 CHAMFER_RTOL, GRAD_ATOL = 1e-5, 1e-7
 EPOCHS, PAIRS = 300, 9
 # one ICP step, card vs CPU: the same correspondences; the batched 3x3 SVD
@@ -108,6 +123,15 @@ LINK_ICP_SHAPE = (6, 2242, 2242)
 # steps in one batch, 6 links x 1,024 model points, against the frames
 # (M = the main path's padded frame size)
 CHAIN_S, CHAIN_N = 50, 6 * 1024
+# (S, N, M) of the evaluation's re-simulation: one capture of 10,000 points
+# against another (the ICP's one-directional search at squared L2, the
+# Chamfer's min-only search at L1)
+RESIM_SHAPE = (1, 10000, 10000)
+# the closed loop's ground truth: the tracked estimate of the wx200 (6 links,
+# 5 revolute joints, STL meshes under data_ab5/mesh/), in the frame it was
+# captured in
+WX200_ESTIMATE = os.path.join("data_ab5", "urdf", "wx200_5_20_seg", "4_deg_20_cams.urdf")
+CLOSED_LOOP_SEQS, CLOSED_LOOP_FRAMES, CLOSED_LOOP_POINTS = 5, 10, 5000
 
 
 # the kernels whose inner loops phase 2 counts (mangled-name fragments): the
@@ -305,7 +329,7 @@ def check_kernels(dev, n_main: int) -> dict:
             out.setdefault(label, {})[norm] = {"bidir": max(errs), "min": err_min,
                                                "acc": err_acc, "nn": err_nn}
 
-        # Chamfer through autograd (indexed kernel + index_add_ backward) and
+        # Chamfer through autograd (indexed kernel + scatter-add backward) and
         # forward-only (min-only kernel), against the plain path on the CPU
         xm = torch.ones(S, N, device=dev)
         ym = torch.ones(S, M, device=dev)
@@ -331,6 +355,7 @@ def check_kernels(dev, n_main: int) -> dict:
             _fail(f"chamfer_distance on the card disagrees with the plain path ({label})")
 
     out["extra"] = {n: _check_new_kernel_shapes(dev, n_main, n) for n in (1, 2)}
+    resim = _check_resim_shape(dev)
     out["design"] = {n: _check_sweep_design(dev, n) for n in (1, 2)}
     out["light"] = {n: _check_light_design(dev, n) for n in (1, 2)}
     _check_fps_and_icp(dev)
@@ -412,6 +437,7 @@ def check_kernels(dev, n_main: int) -> dict:
         del xc, yc
         torch.cuda.empty_cache()
     timing["chain"] = _check_chain_shape(dev, n_main, sms)
+    timing["resim"] = resim
 
     # the accumulator kernel at the large-cloud shape, and both indexed
     # kernels side by side at both sizes: what the dispatch rule rests on
@@ -566,6 +592,57 @@ def _check_chain_shape(dev, n_main: int, sms: int) -> dict:
     print(f"  per-tile vs accumulator at the chain shape: device time per-tile "
           f"{out['nn_bidir']['device_ms']:.4f} ms, accumulator {out['nn_bidir_acc']['device_ms']:.4f} "
           f"ms ({out['nn_bidir_acc']['device_ms'] / out['nn_bidir']['device_ms']:.3f} of per-tile)")
+    del x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_resim_shape(dev) -> dict:
+    """The two searches of the evaluation's re-simulation at S=1, N=M=10,000:
+    the one-directional kernel at squared L2 (the ICP) and the min-only
+    kernel at L1 (the Chamfer), on clouds with forced ties, exact against
+    their plain versions, and timed with the plain version, one library
+    call (cdist + min) and the bound.  Returns kernel -> measurements."""
+    from autourdf_tpu_torch.ops import knn
+
+    S, N, M = RESIM_SHAPE
+    xn, yn = tie_layout_clouds(np.random.default_rng(11), S, N, M)
+    x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def lib_min():
+        d = torch.cdist(x, y, p=1)
+        return d.amin(-1), d.amin(-2)
+
+    cases = {
+        "nn": dict(norm=2, fn=lambda: knn.nn_search(x, y, 2), plain=lambda: knn._nn_plain(x, y, 2),
+                   library=lambda: torch.cdist(x, y).min(-1),
+                   bound=_bound_ms(S, N, M, 4 + 8, both_directions=False)),
+        "nn_min_bidir": dict(norm=1, fn=lambda: knn.nn_min_bidirectional(x, y, 1),
+                             plain=lambda: knn._nn_min_bidir_plain(x, y, 1), library=lib_min,
+                             bound=_bound_ms(S, N, M, 4)),
+    }
+    out = {}
+    for k, c in cases.items():
+        got, ref = c["fn"](), c["plain"]()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+        err = _max_abs(got[0], ref[0])
+        by = _device_ms_by_kernel(c["fn"])
+        t = dict(shape=f"S={S} N=M={N} norm={c['norm']}", ms=_time_ms(c["fn"]),
+                 device_ms=sum(by.values()), kernel_device_ms=_sweep_ms(by, k),
+                 plain_ms=_time_ms(c["plain"], reps=5), library_ms=_time_ms(c["library"], reps=5),
+                 bound_ms=c["bound"][0], bound_by=c["bound"][1], max_abs_err=err,
+                 unfused_floor_ms=_unfused_floor_ms(S, N, M))
+        out[k] = t
+        print(f"  {k:12s} resim shape {t['shape']}: equal to plain {same} (max|d-plain| {err}); "
+              f"wrapper {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (kernel alone "
+              f"{t['kernel_device_ms']:.4f} ms, {len(by)} device kernels), plain "
+              f"{t['plain_ms']:.4f} ms, library (cdist+min) {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), unfused floor "
+              f"{t['unfused_floor_ms']:.4f} ms")
+        _print_plan(knn.plan_bidir(S, N, M, sms, k), sms)
+        if not same:
+            _fail(f"{k} disagrees with its plain version at the resim shape")
     del x, y
     torch.cuda.empty_cache()
     return out
@@ -939,12 +1016,7 @@ def run_icp_path(dev, root: str) -> dict:
     from autourdf_tpu_torch.ops import knn
 
     S, T = 2, 4
-    src = os.path.join(REPO, "data_real", "raw", "wx200_real_5")
-    for seq in sorted(os.listdir(src))[:S]:
-        os.makedirs(os.path.join(root, "raw", "wx200_real_5", seq))
-        for frame in sorted(os.listdir(os.path.join(src, seq)))[:T]:
-            os.symlink(os.path.join(src, seq, frame),
-                       os.path.join(root, "raw", "wx200_real_5", seq, frame))
+    _real_scan_subset(root, S, T)
     cfg = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS,
                          num_videos=S, seed_mode="fps")
     _, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), S)
@@ -1260,6 +1332,236 @@ def run_chain_options(dev, cfg) -> dict:
     return {"counts": counts}
 
 
+def _real_scan_subset(root: str, sequences: int, frames: int) -> None:
+    """Link the first ``sequences`` x ``frames`` of the tracked real scans into
+    the flat real-scan layout under the data root ``root``."""
+    src = os.path.join(REPO, "data_real", "raw", "wx200_real_5")
+    for seq in sorted(os.listdir(src))[:sequences]:
+        os.makedirs(os.path.join(root, "raw", "wx200_real_5", seq))
+        for frame in sorted(os.listdir(os.path.join(src, seq)))[:frames]:
+            os.symlink(os.path.join(src, seq, frame),
+                       os.path.join(root, "raw", "wx200_real_5", seq, frame))
+
+
+def run_reproducibility(dev, root: str) -> None:
+    """Phase 4c: register the first 2 sequences x 4 frames of the real scans
+    twice at seed 0, at full width, each run into its own data root: the two
+    runs' matrices, labels and losses must be equal, bit for bit."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.config import PipelineConfig
+
+    runs, seconds = [], []
+    for run in ("a", "b"):
+        data_root = os.path.join(root, run)
+        _real_scan_subset(data_root, 2, 4)
+        cfg = PipelineConfig(robot="wx200_real_5", data_root=data_root, rot="q", epochs=EPOCHS,
+                             num_videos=2)
+        stats = workflow.run_registration(cfg, seed=0, verbose=False, device=dev)
+        runs.append(stats["result"])
+        seconds.append(stats["seconds"])
+    a, b = runs
+    mat = float((a.matrices - b.matrices).abs().max())
+    labels = int((a.labels != b.labels).sum())
+    loss = float((a.losses - b.losses).abs().max())
+    print(f"  2 sequences x 4 frames, K=20, hidden 512, {EPOCHS} epochs, seed 0, twice "
+          f"({seconds[0]:.3f} s, {seconds[1]:.3f} s): max |matrix a - b| {mat}, labels that "
+          f"differ {labels}, max |loss a - b| {loss}")
+    if (mat, labels, loss) != (0.0, 0, 0.0):
+        _fail("two registrations of the same scans at the same seed differ")
+
+
+@contextlib.contextmanager
+def _timed_stages(stages: dict):
+    """Record each workflow stage's wall time (device synchronised) and its
+    return value, by stage function name, while the block runs."""
+    from autourdf_tpu_torch import workflow
+
+    names = ("run_dataset", "run_registration", "run_build_urdf", "run_evaluation")
+    originals = {n: getattr(workflow, n) for n in names}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = (time.time() - t0, out)
+            return out
+        return call
+
+    for n, fn in originals.items():
+        setattr(workflow, n, timed(n, fn))
+    try:
+        yield stages
+    finally:
+        for n, fn in originals.items():
+            setattr(workflow, n, fn)
+
+
+def time_capture(dev, gt: str) -> None:
+    """One capture of the closed loop's dataset (20 cameras at 800 x 800 px,
+    200,000 surface points, 5,000 picked, the noise on) and one of its
+    evaluation (400 x 400 px, 10,000 picked), each with the share of its
+    farthest-point pick; medians of 3 after a warm-up."""
+    from autourdf_tpu_torch.ops.fps import farthest_point_sample
+    from autourdf_tpu_torch.sim import KinematicEnv
+    from autourdf_tpu_torch.sim.capture import visible_mask
+
+    env = KinematicEnv.create(gt, dof=5, radius=1.5, num_cameras=20,
+                              camera_rng=np.random.default_rng(0), device=dev)
+    env.set_joint_positions(np.array([0.3, -0.2, 0.4, 0.1, -0.3]))
+    pts = torch.from_numpy(env.posed_surface_points()).to(dev)
+
+    def wall(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        return statistics.median(times)
+
+    for pix, k, noise in ((800, CLOSED_LOOP_POINTS, (0.01, 0.0005)), (400, 10000, (0.0, 0.0))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        whole = wall(lambda: env.capture(gen, num_points=k, width=pix, height=pix,
+                                         pose_noise=noise[0], point_noise=noise[1]))
+        vis = visible_mask(pts, env.rig, pix, pix).any(0)
+        sub = pts[vis]
+        fps = wall(lambda: farthest_point_sample(sub, k))
+        splat = wall(lambda: visible_mask(pts, env.rig, pix, pix))
+        print(f"  one capture, 20 cameras at {pix} x {pix} px, {len(pts)} surface points "
+              f"({int(vis.sum())} visible), {k} picked: {1e3 * whole:.3f} ms wall; projection, "
+              f"splat and visibility {1e3 * splat:.3f} ms; farthest-point pick {1e3 * fps:.3f} ms "
+              f"({fps / whole:.3f} of the capture, {1e3 * fps / k:.4f} ms a step)")
+
+
+def time_native_meshing() -> None:
+    """marching_tetrahedra on a 120^3 ball through the native library and
+    through the numpy extractor (median of 3 each)."""
+    from autourdf_tpu_torch.io import native
+    from autourdf_tpu_torch.mesh import marching_tetrahedra
+
+    g = np.indices((120, 120, 120)).transpose(1, 2, 3, 0) - 59.5
+    ball = (g ** 2).sum(-1) <= 55.0 ** 2
+    times = {}
+    available = native.available
+    for label, avail in (("native", available), ("numpy", lambda: False)):
+        native.available = avail
+        try:
+            runs = []
+            for _ in range(3):
+                t0 = time.time()
+                mesh = marching_tetrahedra(ball, 0.003)
+                runs.append(time.time() - t0)
+        finally:
+            native.available = available
+        times[label] = (statistics.median(runs), len(mesh.faces))
+    print(f"  marching tetrahedra on a 120^3 ball: native {1e3 * times['native'][0]:.3f} ms "
+          f"({times['native'][1]} faces), numpy {1e3 * times['numpy'][0]:.3f} ms "
+          f"({times['numpy'][1]} faces)")
+    if times["native"][1] != times["numpy"][1]:
+        _fail("the native and the numpy extractor give different surfaces")
+
+
+def run_closed_loop(dev, root: str) -> dict:
+    """Phase 11: ``python -m autourdf_tpu_torch.cli all`` at the JAX CLI's
+    defaults on the tracked wx200 estimate (5 sequences x 10 frames simulated
+    with 20 cameras at 800 px, 5,000 points a frame from 200,000 surface
+    points; registration K=20, hidden 512, mode q, 300 epochs; the default
+    urdf build with the unknown DoF; evaluation at 3 configurations plus the
+    gt-vs-gt floor).  Checks the dataset, the registration against the raw
+    Chamfer, the URDF, the scores, the telemetry and the kernels' launches."""
+    from autourdf_tpu_torch import cli
+    from autourdf_tpu_torch.io import native
+    from autourdf_tpu_torch.io.ply import read_ply
+    from autourdf_tpu_torch.ops import knn
+
+    if not native.available():
+        _fail(f"the native host library did not build: {native.build_log[-2000:]}")
+    gt = os.path.join(REPO, WX200_ESTIMATE)
+    params = os.path.join(root, "parameters.json")
+    with open(params, "w") as f:
+        json.dump({"wx200_5_ab5": {"gt": gt, "num_seg": 20, "dof": 5, "voxel_size": 0.003,
+                                   "cam_dist": 1.5, "ori": [0, 0, 0], "sim_ori": [0, 0, 0]}}, f)
+    stages: dict = {}
+    log = os.path.join(root, "cli_all.log")
+    knn.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    with _timed_stages(stages), open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(["all", "--parameters-json", params, "--robot", "wx200_5_ab5",
+                       "--data-root", root])
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    counts = dict(knn.launch_counts)
+    with open(log) as f:
+        lines = f.read().splitlines()
+    print(f"  cli all: exit {rc}, {wall:.3f} s wall; {len(lines)} lines of output, the last:")
+    for ln in lines[-6:]:
+        print(f"    {ln[:300]}")
+    if rc != 0:
+        _fail(f"cli all exited {rc}")
+    for name in ("run_dataset", "run_registration", "run_build_urdf", "run_evaluation"):
+        print(f"  {name}: {stages[name][0]:.3f} s")
+
+    seq_dirs = stages["run_dataset"][1]
+    tried = 1 + max(int(os.path.basename(d)[1:]) for d in seq_dirs) if seq_dirs else 0
+    print(f"  dataset: {len(seq_dirs)} sequences kept of {tried} tried "
+          f"({tried - len(seq_dirs)} collided and were retried)")
+    if len(seq_dirs) != CLOSED_LOOP_SEQS:
+        _fail(f"expected {CLOSED_LOOP_SEQS} sequences, got {len(seq_dirs)}")
+    frames = []
+    for d in seq_dirs:
+        seq = []
+        for t in range(CLOSED_LOOP_FRAMES):
+            fd = os.path.join(d, f"{t:04}")
+            if not os.path.exists(os.path.join(fd, "joint_cfg.txt")):
+                _fail(f"missing {fd}/joint_cfg.txt")
+            seq.append(read_ply(os.path.join(fd, "robot.ply")))
+        frames.append(np.stack(seq))
+    frames = np.stack(frames)
+    if frames.shape != (CLOSED_LOOP_SEQS, CLOSED_LOOP_FRAMES, CLOSED_LOOP_POINTS, 3) or \
+            not np.isfinite(frames).all():
+        _fail(f"dataset frames {frames.shape}, finite {np.isfinite(frames).all()}")
+
+    reg = stages["run_registration"][1]
+    raw_mean = _raw_chamfer(dev, frames, None)
+    print(f"  registration: {reg['seconds']:.3f} s, {reg['frames_per_second']:.4f} frames/s; "
+          f"mean raw Chamfer {raw_mean:.6f}, mean step-phase loss {reg['mean_step_loss']:.6f}, "
+          f"mean anchor-phase loss {reg['mean_loss']:.6f}")
+    if not reg["mean_loss"] < raw_mean:
+        _fail(f"mean registration loss {reg['mean_loss']} not below raw Chamfer {raw_mean}")
+
+    out = stages["run_build_urdf"][1]
+    axes = _check_urdf(out, "closed loop")
+    print(f"  urdf: {out['num_links']} links, dof {out['dof']}, {len(axes)} joints")
+
+    ev = stages["run_evaluation"][1]
+    print(f"  evaluation: matched {ev['matched']} / {ev['total']}, pos err "
+          f"{np.round(ev['pos_errors'], 5).tolist()} m, dir err "
+          f"{np.round(ev['dir_errors'], 3).tolist()} deg (complete {ev['dir_mean_complete']:.3f} "
+          f"deg); resim Chamfer {np.round(ev['chamfer_losses'], 6).tolist()} (mean "
+          f"{ev['chamfer_mean']:.6f}), floor {ev['chamfer_floor']:.6f}")
+    scores = list(ev["pos_errors"]) + list(ev["dir_errors"]) + list(ev["chamfer_losses"])
+    if ev["matched"] < 1 or not np.all(np.isfinite(scores + [ev["chamfer_floor"]])):
+        _fail("the evaluation gave no finite joint error, resim Chamfer or floor")
+
+    with open(os.path.join(root, "telemetry.json")) as f:
+        records = json.load(f)
+    print(f"  telemetry: {[{k: v for k, v in r.items() if k != 'start'} for r in records]}")
+    if [r["stage"] for r in records] != ["dataset", "register", "build_urdf", "evaluate"]:
+        _fail(f"telemetry records {[r['stage'] for r in records]}")
+    print(f"  launches: {counts}")
+    for k in ("nn_bidir", "nn_bidir_acc", "nn_min_bidir", "nn"):
+        if counts[k] < 1:
+            _fail(f"the closed loop did not launch {k}")
+    time_capture(dev, gt)
+    time_native_meshing()
+    return {"counts": counts, "seconds": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1305,13 +1607,15 @@ def main() -> int:
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        roots = {k: os.path.join(tmp, k) for k in ("main", "icp", "large")}
+        roots = {k: os.path.join(tmp, k) for k in ("main", "icp", "large", "repro", "loop")}
         for r in roots.values():
             os.makedirs(r)
         print("[4] main path: workflow.run_registration on data_real/raw/wx200_real_5")
         paths["register"] = main_path = run_main_path(dev, gpu_line, roots["main"])
         print("[4b] where an epoch's time goes")
         profile_epochs(dev, main_path["n"])
+        print("[4c] reproducibility: two registrations of the same scans at the same seed")
+        run_reproducibility(dev, roots["repro"])
         print("[6] path B: workflow.run_build_urdf(refine='none', tree='mst') on the artifacts "
               "of [4]")
         paths["urdf"] = run_urdf_stage(dev, main_path["cfg"])
@@ -1328,6 +1632,9 @@ def main() -> int:
         print("[10] the chain fit's opt-in options: chain_anchors=2, canonical_frames=3, "
               "chain_trunc=2.0, 100 steps")
         paths["urdf_chain_options"] = run_chain_options(dev, main_path["cfg"])
+        print("[11] the closed loop: cli all (dataset -> register -> urdf -> evaluate) on the "
+              "tracked wx200 estimate")
+        paths["closed_loop"] = run_closed_loop(dev, roots["loop"])
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",
@@ -1335,6 +1642,7 @@ def main() -> int:
                "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233"}
     kernels = []
     chain_shape = timing.pop("chain")
+    resim_shape = timing.pop("resim")
     for kname, t in timing.items():
         by_path = {pname: p["counts"][kname] for pname, p in paths.items()}
         kernels.append({
@@ -1348,6 +1656,8 @@ def main() -> int:
         })
         if kname in chain_shape:
             kernels[-1]["at_chain_shape"] = chain_shape[kname]
+        if kname in resim_shape:
+            kernels[-1]["at_resim_shape"] = resim_shape[kname]
         if kernels[-1]["launches"] < 1:
             _fail(f"kernel {kname} was launched on no path")
     for k in kernels:

@@ -56,7 +56,7 @@ def test_kernels_match_plain_on_card(cuda, shape, norm):
 
 
 def test_chamfer_grad_on_card_matches_cpu(cuda):
-    # the same matched neighbours; index_add_ atomics reorder the sums
+    # the same matched neighbours; the card's reductions sum in another order
     x, y = _clouds(2, 700, 333, True, cuda)
     xm = torch.ones(2, 700, device=cuda)
     xm[:, -30:] = 0
@@ -370,8 +370,8 @@ def _hinge_chain_inputs(T=6, step=0.2, seed=0):
 
 def test_refine_chain_on_card_matches_cpu(cuda):
     """50 steps of the chain fit on the card (accumulator search forward,
-    index_add_ backward with float atomics) against the same fit on the CPU.
-    The atomics reorder the backward's sums, so the fits are not bit-equal;
+    scatter-add backward) against the same fit on the CPU.  The card's
+    reductions sum in another order, so the fits are not bit-equal;
     they agree to 1e-4 relative in every step's loss and 1e-4 absolute in
     the axis, origin and angles (the CPU parity tests' geometry tolerance)."""
     from autourdf_tpu_torch.joints.chain import refine_chain
@@ -388,3 +388,69 @@ def test_refine_chain_on_card_matches_cpu(cuda):
     for f in ("axes", "origins", "thetas", "freeze_deltas"):
         np.testing.assert_allclose(getattr(a, f), getattr(b, f), atol=1e-4, err_msg=f)
     assert a.step_losses[-1] < a.step_losses[0]
+
+
+def register_real_scans_twice(dev, root, sequences=2, frames=4):
+    """Register the first ``sequences`` x ``frames`` of the tracked real
+    scans twice at seed 0 (full width: K=20, hidden 512, 300 epochs), each
+    run into its own data root under ``root``.  Returns the largest
+    difference between the two runs' matrices, the number of point labels
+    that differ and the largest difference between their losses."""
+    import os
+
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.config import PipelineConfig
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(repo, "data_real", "raw", "wx200_real_5")
+    runs = []
+    for run in ("a", "b"):
+        data_root = os.path.join(root, run)
+        for seq in sorted(os.listdir(src))[:sequences]:
+            os.makedirs(os.path.join(data_root, "raw", "wx200_real_5", seq))
+            for frame in sorted(os.listdir(os.path.join(src, seq)))[:frames]:
+                os.symlink(os.path.join(src, seq, frame),
+                           os.path.join(data_root, "raw", "wx200_real_5", seq, frame))
+        cfg = PipelineConfig(robot="wx200_real_5", data_root=data_root, num_videos=sequences)
+        runs.append(workflow.run_registration(cfg, seed=0, verbose=False, device=dev)["result"])
+    a, b = runs
+    return (float((a.matrices - b.matrices).abs().max()),
+            int((a.labels != b.labels).sum()),
+            float((a.losses - b.losses).abs().max()))
+
+
+def test_registration_is_reproducible_on_card(cuda, tmp_path):
+    """Two registrations of the same real scans at the same seed on the card
+    give the same matrices, labels and losses, bit for bit."""
+    mat, labels, loss = register_real_scans_twice(cuda, str(tmp_path))
+    print(f"max |matrix a - b| {mat}, labels that differ {labels}, max |loss a - b| {loss}")
+    assert (mat, labels, loss) == (0.0, 0, 0.0)
+
+
+def test_capture_on_card_matches_cpu(cuda):
+    """The capture of the tracked wx200 estimate (20 cameras at 800 px) on
+    the card against the CPU: the card's batched projection may round a
+    camera coordinate differently, so a point on a pixel or depth edge can
+    flip; at most 0.1% of the points do.  The farthest-point picks over the
+    same visible points are equal (the card's loop and the host library
+    round each product alike)."""
+    import os
+
+    from autourdf_tpu_torch.ops.fps import farthest_point_sample
+    from autourdf_tpu_torch.sim import KinematicEnv
+    from autourdf_tpu_torch.sim.capture import visible_mask
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    gt = os.path.join(repo, "data_ab5", "urdf", "wx200_5_20_seg", "4_deg_20_cams.urdf")
+    env = KinematicEnv.create(gt, dof=5, camera_rng=np.random.default_rng(0), device="cpu")
+    env.set_joint_positions(np.array([0.3, -0.2, 0.4, 0.1, -0.3]))
+    pts = torch.from_numpy(env.posed_surface_points())
+    rig = env.rig
+    rig_card = rig._replace(eyes=rig.eyes.to(cuda), targets=rig.targets.to(cuda),
+                            ups=rig.ups.to(cuda))
+    cpu = visible_mask(pts, rig, 800, 800).any(0)
+    card = visible_mask(pts.to(cuda), rig_card, 800, 800).any(0).cpu()
+    assert float((cpu != card).float().mean()) <= 1e-3
+    sub = pts[cpu]
+    assert torch.equal(farthest_point_sample(sub.to(cuda), 5000).cpu(),
+                       farthest_point_sample(sub, 5000))
