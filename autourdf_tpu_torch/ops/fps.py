@@ -5,14 +5,11 @@ Deterministic: seeds from point 0, or from the first valid point under a
 mask, so fixed-capacity padded clouds can be sampled without compaction on
 the host.  ``torch.argmax`` returns the first index among equal scores, as
 ``jnp.argmax`` does.  The k-step loop keeps everything on the device: no
-value is read back between steps.  Unmasked float32 clouds on the CPU go
-through the native host library's loop (``io/native.py``), which makes the
-same picks.
+value is read back between steps.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -24,14 +21,6 @@ def farthest_point_sample(points: torch.Tensor, k: int,
     If fewer than ``k`` valid points exist, indices repeat the valid set.
     """
     valid = None if mask is None else mask.to(torch.bool)
-    if valid is None and points.device.type == "cpu" and points.dtype == torch.float32:
-        # on the host, the native library's loop makes the same picks (the
-        # same float32 distances, the first index among equal scores)
-        from ..io import native
-
-        if native.available():
-            return torch.from_numpy(
-                native.fps_native(points.detach().numpy(), k).astype(np.int64))
 
     def score(d):
         return d if valid is None else torch.where(valid, d, -torch.inf)

@@ -76,8 +76,7 @@ def icp_point_to_point(
     """Open3D-semantics p2p ICP of one cloud pair or of a batch of pairs.
 
     ``max_iterations`` is a fixed bound; a batch entry that meets the
-    relative criteria freezes, the others go on (on CPU tensors the loop
-    stops once every entry has frozen, with the same result).
+    relative criteria freezes, the others go on.
     """
     squeeze = source.dim() == 2
     if squeeze:
@@ -110,8 +109,6 @@ def icp_point_to_point(
         fitness = torch.where(done, fitness, fit_new)
         rmse = torch.where(done, rmse, rmse_new)
         done = done | conv
-        if dev.type == "cpu" and bool(done.all()):
-            break   # nothing changes any more; on the card no value is read back
     if squeeze:
         return ICPResult(T[0], fitness[0], rmse[0])
     return ICPResult(T, fitness, rmse)

@@ -36,7 +36,7 @@ class KinematicEnv:
     excluded_pairs: list[tuple[str, str]] = field(default_factory=list)
     surface_points: int = 200_000
     prefer_geometry: str = "visual"
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = field(default_factory=lambda: resolve_device("cuda"))
     _link_samples: dict[str, np.ndarray] = field(default_factory=dict)
     _collision: CollisionChecker | None = None
     _current_q: dict[str, float] | None = None

@@ -1343,26 +1343,33 @@ def _real_scan_subset(root: str, sequences: int, frames: int) -> None:
                        os.path.join(root, "raw", "wx200_real_5", seq, frame))
 
 
-def run_reproducibility(dev, root: str) -> None:
-    """Phase 4c: register the first 2 sequences x 4 frames of the real scans
-    twice at seed 0, at full width, each run into its own data root: the two
-    runs' matrices, labels and losses must be equal, bit for bit."""
+def register_real_scans_twice(dev, root: str, sequences: int = 2, frames: int = 4):
+    """Register the first ``sequences`` x ``frames`` of the real scans twice
+    at seed 0, at full width, each run into its own data root under
+    ``root``: ``(max |matrix a - b|, labels that differ, max |loss a - b|,
+    the two runs' seconds)``.  ``tests/test_torch_cuda.py`` calls it too."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
 
     runs, seconds = [], []
     for run in ("a", "b"):
         data_root = os.path.join(root, run)
-        _real_scan_subset(data_root, 2, 4)
+        _real_scan_subset(data_root, sequences, frames)
         cfg = PipelineConfig(robot="wx200_real_5", data_root=data_root, rot="q", epochs=EPOCHS,
-                             num_videos=2)
+                             num_videos=sequences)
         stats = workflow.run_registration(cfg, seed=0, verbose=False, device=dev)
         runs.append(stats["result"])
         seconds.append(stats["seconds"])
     a, b = runs
-    mat = float((a.matrices - b.matrices).abs().max())
-    labels = int((a.labels != b.labels).sum())
-    loss = float((a.losses - b.losses).abs().max())
+    return (float((a.matrices - b.matrices).abs().max()), int((a.labels != b.labels).sum()),
+            float((a.losses - b.losses).abs().max()), seconds)
+
+
+def run_reproducibility(dev, root: str) -> None:
+    """Phase 4c: two registrations of the first 2 sequences x 4 frames of the
+    real scans at seed 0 must give equal matrices, labels and losses, bit
+    for bit."""
+    mat, labels, loss, seconds = register_real_scans_twice(dev, root)
     print(f"  2 sequences x 4 frames, K=20, hidden 512, {EPOCHS} epochs, seed 0, twice "
           f"({seconds[0]:.3f} s, {seconds[1]:.3f} s): max |matrix a - b| {mat}, labels that "
           f"differ {labels}, max |loss a - b| {loss}")

@@ -390,39 +390,17 @@ def test_refine_chain_on_card_matches_cpu(cuda):
     assert a.step_losses[-1] < a.step_losses[0]
 
 
-def register_real_scans_twice(dev, root, sequences=2, frames=4):
-    """Register the first ``sequences`` x ``frames`` of the tracked real
-    scans twice at seed 0 (full width: K=20, hidden 512, 300 epochs), each
-    run into its own data root under ``root``.  Returns the largest
-    difference between the two runs' matrices, the number of point labels
-    that differ and the largest difference between their losses."""
-    import os
-
-    from autourdf_tpu_torch import workflow
-    from autourdf_tpu_torch.config import PipelineConfig
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    src = os.path.join(repo, "data_real", "raw", "wx200_real_5")
-    runs = []
-    for run in ("a", "b"):
-        data_root = os.path.join(root, run)
-        for seq in sorted(os.listdir(src))[:sequences]:
-            os.makedirs(os.path.join(data_root, "raw", "wx200_real_5", seq))
-            for frame in sorted(os.listdir(os.path.join(src, seq)))[:frames]:
-                os.symlink(os.path.join(src, seq, frame),
-                           os.path.join(data_root, "raw", "wx200_real_5", seq, frame))
-        cfg = PipelineConfig(robot="wx200_real_5", data_root=data_root, num_videos=sequences)
-        runs.append(workflow.run_registration(cfg, seed=0, verbose=False, device=dev)["result"])
-    a, b = runs
-    return (float((a.matrices - b.matrices).abs().max()),
-            int((a.labels != b.labels).sum()),
-            float((a.losses - b.losses).abs().max()))
-
-
 def test_registration_is_reproducible_on_card(cuda, tmp_path):
     """Two registrations of the same real scans at the same seed on the card
     give the same matrices, labels and losses, bit for bit."""
-    mat, labels, loss = register_real_scans_twice(cuda, str(tmp_path))
+    import importlib.util
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    mat, labels, loss, _ = smoke.register_real_scans_twice(cuda, str(tmp_path))
     print(f"max |matrix a - b| {mat}, labels that differ {labels}, max |loss a - b| {loss}")
     assert (mat, labels, loss) == (0.0, 0, 0.0)
 
@@ -432,8 +410,8 @@ def test_capture_on_card_matches_cpu(cuda):
     the card against the CPU: the card's batched projection may round a
     camera coordinate differently, so a point on a pixel or depth edge can
     flip; at most 0.1% of the points do.  The farthest-point picks over the
-    same visible points are equal (the card's loop and the host library
-    round each product alike)."""
+    same visible points are equal (the card's loop and the CPU's round each
+    product alike)."""
     import os
 
     from autourdf_tpu_torch.ops.fps import farthest_point_sample

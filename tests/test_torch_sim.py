@@ -187,21 +187,29 @@ def _fps_agrees_or_parts_on_a_tie(points: np.ndarray, k: int) -> bool:
     return abs(float(mind[a[i]]) - float(mind[b[i]])) <= 2 * float(np.spacing(mind[a[i]]))
 
 
+def _hold_capture(points_np, rig_t, pix, num_points, vis_t, cloud_t, vis_j, cloud_j):
+    """Noise-off captures of both packages on the same points: the masks
+    agree up to explained flips; where they agree, the clouds are equal or
+    the farthest-point picks part on a near tie."""
+    flips, explained = _flips_explained(torch.from_numpy(points_np), rig_t, pix, vis_t, vis_j)
+    assert flips.mean() <= MAX_FLIP_SHARE, f"{flips.sum()} of {len(flips)} points flipped"
+    assert explained, "a flipped point is not on a one-ulp pixel or depth edge"
+    if not flips.any() and np.abs(cloud_t - cloud_j).max() > CLOUD_ATOL:
+        assert _fps_agrees_or_parts_on_a_tie(points_np[vis_t], num_points)
+    return int(flips.sum())
+
+
 def _check_capture(points_np, rig_t, rig_j, pix, num_points):
     """Noise-off capture of both packages on the same points and rig."""
-    pts = torch.from_numpy(points_np)
-    cloud_t, vis_t = capture_cloud(pts, rig_t, None, width=pix, height=pix,
-                                   num_points=num_points)
+    cloud_t, vis_t = capture_cloud(torch.from_numpy(points_np), rig_t, None, width=pix,
+                                   height=pix, num_points=num_points)
     cloud_j, vis_j = j_capture.capture_cloud(jnp.asarray(points_np), rig_j,
                                              jax.random.PRNGKey(0), width=pix, height=pix,
                                              num_points=num_points)
-    vis_t, vis_j = vis_t.numpy(), np.asarray(vis_j)
-    flips, explained = _flips_explained(pts, rig_t, pix, vis_t, vis_j)
-    assert flips.mean() <= MAX_FLIP_SHARE, f"{flips.sum()} of {len(flips)} points flipped"
-    assert explained, "a flipped point is not on a one-ulp pixel or depth edge"
-    if not flips.any() and np.abs(cloud_t.numpy() - np.asarray(cloud_j)).max() > CLOUD_ATOL:
-        assert _fps_agrees_or_parts_on_a_tie(points_np[vis_t], num_points)
-    return vis_t, cloud_t.numpy(), int(flips.sum())
+    vis_t, cloud_t = vis_t.numpy(), cloud_t.numpy()
+    flips = _hold_capture(points_np, rig_t, pix, num_points, vis_t, cloud_t,
+                          np.asarray(vis_j), np.asarray(cloud_j))
+    return vis_t, cloud_t, flips
 
 
 def _cube_with_interior():
@@ -247,17 +255,14 @@ def test_capture_two_link_matches_jax(two_link, pix, cams, q):
     _check_capture(pts, env_t.rig, env_j.rig, pix, 2000)
 
 
-def test_fps_native_and_loop_make_the_same_picks(monkeypatch):
+def test_fps_native_and_loop_make_the_same_picks():
     from autourdf_tpu_torch.io import native
 
     pts = torch.from_numpy(np.random.default_rng(4).random((20000, 3)).astype(np.float32))
     pts[5000:5100] = pts[:100]                         # equal scores
-    got = farthest_point_sample(pts, 700)
-    with monkeypatch.context() as m:
-        m.setattr(native, "available", lambda: False)
-        ref = farthest_point_sample(pts, 700)
     assert native.available()
-    assert torch.equal(got, ref)
+    got = native.fps_native(pts.numpy(), 700)
+    assert torch.equal(torch.from_numpy(got.astype(np.int64)), farthest_point_sample(pts, 700))
 
 
 def test_capture_noise_presence_and_scale():
@@ -316,13 +321,27 @@ def _toy_robot(root, *packages):
     return urdf
 
 
-def test_dataset_stage_matches_jax(tmp_path):
+def _recording(calls, capture, to_numpy):
+    """``capture`` that also appends each call's (points, rig, mask, cloud)."""
+    def wrapped(points, rig, *args, **kwargs):
+        cloud, vis = capture(points, rig, *args, **kwargs)
+        calls.append((to_numpy(points), rig, to_numpy(vis), to_numpy(cloud)))
+        return cloud, vis
+    return wrapped
+
+
+def test_dataset_stage_matches_jax(tmp_path, monkeypatch):
     """run_dataset of both packages on the toy hinge, noise off: the same
-    sequence directories, identical joint_cfg.txt, and clouds equal (all six
-    frames were, on the CPU that wrote this test), or, where the farthest-point
-    picks part on a near tie, two samplings of one surface (Chamfer-L1 below
-    0.05 m, about the samples' spacing)."""
+    sequence directories and identical joint_cfg.txt; every capture of the
+    stage on the same posed points, with masks that agree up to explained
+    flips and clouds held as the capture tests hold them; the files are
+    those captures."""
     _toy_robot(str(tmp_path), jconfig, tconfig)
+    calls_t, calls_j = [], []
+    monkeypatch.setattr("autourdf_tpu_torch.sim.env.capture_cloud",
+                        _recording(calls_t, capture_cloud, lambda x: x.cpu().numpy()))
+    monkeypatch.setattr(j_env, "capture_cloud",
+                        _recording(calls_j, j_capture.capture_cloud, np.asarray))
     kw = dict(robot="toy_hinge", num_step=3, num_videos=2, num_points=600, pix=240,
               step_size_deg=8, noise=False)
     dj = jworkflow.run_dataset(jconfig.PipelineConfig(data_root=str(tmp_path / "j"), **kw),
@@ -330,7 +349,12 @@ def test_dataset_stage_matches_jax(tmp_path):
     dt = tworkflow.run_dataset(tconfig.PipelineConfig(data_root=str(tmp_path / "t"), **kw),
                                epochs=2, device="cpu")
     assert [os.path.basename(d) for d in dt] == [os.path.basename(d) for d in dj]
-    equal = 0
+    assert len(calls_t) == len(calls_j) == 6           # 2 sequences x 3 frames, none collided
+    for (pts, rig_t, vis_t, cloud_t), (pts_j, _, vis_j, cloud_j) in zip(calls_t, calls_j):
+        np.testing.assert_array_equal(pts, pts_j)
+        _hold_capture(pts, rig_t, 240, 600, vis_t, cloud_t, vis_j, cloud_j)
+    clouds_t = iter(c[3] for c in calls_t)
+    clouds_j = iter(c[3] for c in calls_j)
     for a, b in zip(dj, dt):
         frames = sorted(os.listdir(a))
         assert frames == sorted(os.listdir(b)) and len(frames) == 3
@@ -340,12 +364,8 @@ def test_dataset_stage_matches_jax(tmp_path):
                 assert fa.read() == fb.read()
             ca, cb = (read_ply(os.path.join(d, fr, "robot.ply")) for d in (a, b))
             assert ca.shape == cb.shape == (600, 3)
-            if np.abs(ca - cb).max() <= CLOUD_ATOL:
-                equal += 1
-            else:   # the farthest-point picks parted on a near tie (test_capture_*)
-                d = torch.cdist(torch.from_numpy(ca), torch.from_numpy(cb), p=1)
-                assert float(d.min(0).values.mean() + d.min(1).values.mean()) < 0.05
-    assert equal >= 1
+            np.testing.assert_array_equal(ca, next(clouds_j))
+            np.testing.assert_array_equal(cb, next(clouds_t))
     with open(tmp_path / "t" / "telemetry.json") as f:
         assert [r["stage"] for r in json.load(f)] == ["dataset"]
 
