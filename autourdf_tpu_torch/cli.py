@@ -9,6 +9,7 @@
     python -m autourdf_tpu_torch.cli evaluate --robot wx200_5
     python -m autourdf_tpu_torch.cli all --robot wx200_5   (dataset -> register -> urdf
         -> evaluate)
+    python -m autourdf_tpu_torch.cli view --urdf robot.urdf --out-dir out --sweep --interactive
     python -m autourdf_tpu_torch.cli <stage> ... --device cpu   (plain PyTorch path)
 
 ``urdf`` takes every flag of ``python -m autourdf_tpu.cli urdf`` with its
@@ -22,6 +23,12 @@ dataset and the evaluation; ``register`` takes its own ``--seed`` (default
 0, the segmentation and the MLP init), and ``all`` registers at seed 0 and
 builds the URDF with the unknown DoF.  Unlike the JAX CLI, ``--pix`` is
 honoured (the JAX CLI accepts it and captures at 800 whatever it says).
+
+``view`` writes what the JAX CLI's does (``snapshot.png``, with
+``--interactive`` ``interactive.html``, with ``--sweep`` one
+``sweep_<joint>.gif`` a revolute joint) through ``viz.py``'s numpy
+rasteriser, which draws no text; it is host work, and ``--device`` is
+accepted and unused.
 """
 
 from __future__ import annotations
@@ -179,6 +186,16 @@ def main(argv=None) -> int:
                         "corrects the reference's rolled real scans; pass 0,0,0 for "
                         "self-captured real-layout data)")
 
+    p = sub.add_parser("view", help="render a URDF: axis snapshot + joint sweep GIFs")
+    _add_common(p, 2024, "accepted for parity with the JAX CLI; the stage draws nothing")
+    p.add_argument("--urdf", type=str, default=None,
+                   help="URDF path (default: this robot's recovered URDF)")
+    p.add_argument("--out-dir", type=str, default="data/view")
+    p.add_argument("--sweep", action="store_true", help="also render per-joint sweep GIFs")
+    p.add_argument("--interactive", action="store_true",
+                   help="export a self-contained interactive HTML viewer "
+                        "(joint sliders + orbit camera, no dependencies)")
+
     p = sub.add_parser("all", help="dataset -> register -> urdf -> evaluate")
     _add_common(p, 2024, "seed of the dataset and the evaluation (registration: seed 0)")
     p.add_argument("--r", type=str, default="q", choices=["q", "rpy", "dq", "6d"])
@@ -222,6 +239,27 @@ def main(argv=None) -> int:
                                       num_configs=args.num_configs, pred_ori=po,
                                       device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "view":
+        import os
+
+        from . import viz
+        from .urdf.parser import load_urdf
+        from .viz_interactive import export_interactive_html
+
+        urdf_path = args.urdf or cfg.urdf_path()
+        outs = [viz.urdf_snapshot(urdf_path, os.path.join(args.out_dir, "snapshot.png"),
+                                  asset_root=args.asset_root)]
+        if args.interactive:
+            outs.append(export_interactive_html(
+                urdf_path, os.path.join(args.out_dir, "interactive.html"),
+                asset_root=args.asset_root))
+        if args.sweep:
+            model = load_urdf(urdf_path, asset_root=args.asset_root, load_meshes=False)
+            for j in model.revolute_joints:
+                outs.append(viz.sweep_joint_gif(
+                    urdf_path, j.name, os.path.join(args.out_dir, f"sweep_{j.name}.gif"),
+                    asset_root=args.asset_root))
+        print(json.dumps({"outputs": outs}))
     else:
         workflow.run_dataset(cfg, asset_root=args.asset_root, ground=args.ground,
                              epochs=args.epoch, device=args.device)

@@ -17,13 +17,35 @@ rebuild of ``_chamfer_cvjp_bwd`` — exactly the subgradient of the true
 Chamfer objective (the argmin is piecewise constant).  A call that needs no
 gradient runs the min-only kernel instead, as the JAX custom-VJP primal
 does.
+
+Inside ``parallel.mesh_scope(mesh)`` with an ``sp`` axis larger than 1,
+targets of at least ``AUTO_SHARD_MIN_M`` points go to
+``parallel.sharding.sharded_chamfer``.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .knn import PAD_COORD, Norm, nn_min_bidirectional, nn_search, nn_search_bidirectional
+from .reduce import row_sums
+
+
+# Auto-shard threshold: the JAX package's value, so that both packages shard
+# the same calls (AUTOURDF_AUTO_SHARD_MIN_M overrides it).
+AUTO_SHARD_MIN_M = int(os.environ.get("AUTOURDF_AUTO_SHARD_MIN_M", 32768))
+
+
+def _active_sp_mesh():
+    """The active mesh (``parallel.mesh_scope``), if its sp axis is > 1."""
+    from ..parallel.sharding import active_mesh
+
+    mesh = active_mesh()
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        return mesh
+    return None
 
 
 def _pointwise(diff: torch.Tensor, norm: int) -> torch.Tensor:
@@ -42,7 +64,10 @@ def _masked_mean(vals: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
 
 
 def _weighted_mean(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(vals * w, dim=-1) / torch.clamp_min(torch.sum(w, dim=-1), 1.0)
+    """Per-sequence weighted mean of ``(S, N)`` values, each sequence's
+    sums independent of the others in the batch (``ops/reduce.py``)."""
+    num, den = row_sums(torch.stack([vals * w, w]))
+    return num / torch.clamp_min(den, 1.0)
 
 
 def _apply_mask(pts: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -72,11 +97,13 @@ def _scatter_add_points(like: torch.Tensor, idx: torch.Tensor, vals: torch.Tenso
 
 
 class _ChamferFn(torch.autograd.Function):
-    """Batched Chamfer with the gather + scatter-add backward (S, N, 3)."""
+    """Batched Chamfer with the gather + scatter-add backward (S, N, 3).
+    ``search`` gives the bidirectional search's ``(dx, ix, dy, iy)``
+    (``parallel.sharding`` passes one that splits it over ranks)."""
 
     @staticmethod
-    def forward(ctx, x, y, xm, ym, norm):
-        dx, ix, dy, iy = nn_search_bidirectional(_apply_mask(x, xm), _apply_mask(y, ym), norm)
+    def forward(ctx, x, y, xm, ym, norm, search):
+        dx, ix, dy, iy = search(_apply_mask(x, xm), _apply_mask(y, ym), norm)
         ctx.save_for_backward(x, y, ix, iy, xm, ym)
         ctx.norm = norm
         return _weighted_mean(dx, xm) + _weighted_mean(dy, ym)
@@ -100,7 +127,7 @@ class _ChamferFn(torch.autograd.Function):
             grad_x = wx * phi_x + _scatter_add_points(x, iy, -wy * phi_y)
         if ctx.needs_input_grad[1]:
             grad_y = wy * phi_y + _scatter_add_points(y, ix, -wx * phi_x)
-        return grad_x, grad_y, None, None, None
+        return grad_x, grad_y, None, None, None, None
 
 
 def chamfer_distance(
@@ -115,8 +142,15 @@ def chamfer_distance(
     With autograd recording and an input that requires grad, the indexed
     bidirectional kernel runs and the backward rebuilds the subgradient;
     otherwise the min-only kernel gives the loss straight from its
-    min-distance outputs.
+    min-distance outputs.  Inside ``parallel.mesh_scope(mesh)`` (sp > 1),
+    targets of ``AUTO_SHARD_MIN_M`` points or more shard over the sp ranks.
     """
+    if y.shape[-2] >= AUTO_SHARD_MIN_M:
+        mesh = _active_sp_mesh()
+        if mesh is not None:
+            from ..parallel.sharding import sharded_chamfer
+
+            return sharded_chamfer(mesh, x, y, x_mask, y_mask, norm=norm)
     squeeze = x.dim() == 2
     if squeeze:
         x, y, x_mask, y_mask = (None if t is None else t[None] for t in (x, y, x_mask, y_mask))
@@ -126,7 +160,7 @@ def chamfer_distance(
     ym = (torch.ones((S, m), dtype=torch.float32, device=y.device) if y_mask is None
           else y_mask.to(torch.float32))
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        loss = _ChamferFn.apply(x, y, xm, ym, norm)
+        loss = _ChamferFn.apply(x, y, xm, ym, norm, nn_search_bidirectional)
     else:
         dx, dy = nn_min_bidirectional(_apply_mask(x, xm), _apply_mask(y, ym), norm)
         loss = _weighted_mean(dx, xm) + _weighted_mean(dy, ym)

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from .fps import farthest_point_sample
+from .reduce import row_sums
 
 
 class KMeansResult(NamedTuple):
@@ -56,13 +57,15 @@ def lloyd(
         return KMeansResult(res.centers[0], res.labels[0], res.inertia[0])
     k = init_centers.shape[-2]
     m = None if mask is None else mask.to(points.dtype)
-    if m is None:
-        var = torch.mean(torch.var(points, dim=-2, unbiased=False), dim=-1)
-    else:
-        cnt = torch.sum(m, dim=-1)
-        mean = torch.sum(m[..., None] * points, dim=-2) / torch.clamp_min(cnt, 1.0)[..., None]
-        var = (torch.sum(m[..., None] * (points - mean[..., None, :]) ** 2, dim=(-2, -1))
-               / torch.clamp_min(cnt * points.shape[-1], 1.0))
+    # the data variance, each sequence's sums independent of the batch it is
+    # in (ops/reduce.py): the freeze threshold must not change with it
+    pts = points.transpose(-1, -2)                                    # (S, D, N)
+    w = torch.ones_like(pts[..., :1, :]) if m is None else m[..., None, :]
+    sums = row_sums(torch.cat([w, w * pts], dim=-2))               # (S, 1 + D)
+    cnt = sums[..., 0]
+    mean = sums[..., 1:] / torch.clamp_min(cnt, 1.0)[..., None]
+    var = (row_sums((w * (pts - mean[..., None]) ** 2).flatten(-2))
+           / torch.clamp_min(cnt * points.shape[-1], 1.0))
     shift_tol = tol * var
     cluster_ids = torch.arange(k, device=points.device)
 

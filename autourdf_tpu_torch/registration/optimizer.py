@@ -184,6 +184,7 @@ def train_epochs(
     scheduler_patience: int = 5,
     scheduler_factor: float = 0.7,
     corr_every: int = 1,
+    chamfer_fn=None,
 ) -> tuple[TrainCarry, torch.Tensor]:
     """Advance the optimization by ``num_epochs``; returns ``(carry, losses
     (S, num_epochs))``.
@@ -198,6 +199,11 @@ def train_epochs(
     per round of ``corr_every`` epochs; the epochs in between optimize the
     gathered (projected) Chamfer, an upper bound that touches the true loss
     at each refresh.
+
+    ``chamfer_fn(pred, target, points_mask, target_mask) -> loss (S,)``
+    overrides the loss (``corr_every == 1`` only): the hook through which
+    ``parallel.sharding.train_step_dp_sp`` substitutes the Chamfer whose
+    search is split over the sp ranks.
     """
     steps = (stop_patience, scheduler_patience, scheduler_factor)
 
@@ -207,15 +213,21 @@ def train_epochs(
 
     losses = []
     if corr_every <= 1:
+        if chamfer_fn is None:
+            def chamfer_fn(pred, tgt, pm, tm):
+                return chamfer_distance(pred, tgt, pm, tm, norm=1)
+
         def loss_and_m(theta):
             m2, pred = predict(theta)
-            return chamfer_distance(pred, target, points_mask, target_mask, norm=1), m2
+            return chamfer_fn(pred, target, points_mask, target_mask), m2
 
         for _ in range(num_epochs):
             carry, loss = _epoch_step(carry, loss_and_m, *steps)
             losses.append(loss)
         return carry, torch.stack(losses, dim=1)
 
+    if chamfer_fn is not None:
+        raise ValueError("chamfer_fn override requires corr_every == 1")
     if num_epochs % corr_every != 0:
         raise ValueError(
             f"num_epochs={num_epochs} must be a multiple of corr_every={corr_every}")

@@ -64,7 +64,21 @@ Phases, each of which fails the run on error:
     configurations, the gt-vs-gt floor); check every stage's output, the
     telemetry and that all four kernels were launched; time each stage, one
     capture and its farthest-point pick, and the native meshing against the
-    numpy extractor (the native host library must build).
+    numpy extractor (the native host library must build);
+12. the parallel layer with several ranks on the one card
+    (``parallel.launch.run``, gloo with CUDA tensors), each rank's result
+    held against the single-process path on the card: [12a]
+    ``sharded_chamfer`` over 2 ranks at N = M = 131,072 and at N = 100,003,
+    M = 131,071 with bool masks (loss, both gradients, every nearest index);
+    [12b] ``chamfer_distance`` inside ``mesh_scope`` at M = 40,000 shards by
+    itself; [12c] ``train_step_dp_sp`` on a (2, 2) mesh (4 ranks) with four
+    of [11]'s sequences, K=20, hidden 512, 300 epochs; [12d]
+    ``register_sequences_sharded`` over 2 ranks, four of [11]'s sequences x 3
+    frames; every rank must launch the search kernels, and the wall times
+    say nothing of multi-card scaling;
+13. ``cli view --sweep --interactive`` on [11]'s recovered URDF: the
+    snapshot, the HTML scene and one GIF a revolute joint, each read back by
+    the script's own PNG and GIF readers.
 
 Phase 4c registers the first 2 sequences x 4 frames of the real scans twice
 at seed 0 and fails unless the two runs are equal, bit for bit.
@@ -1566,7 +1580,518 @@ def run_closed_loop(dev, root: str) -> dict:
             _fail(f"the closed loop did not launch {k}")
     time_capture(dev, gt)
     time_native_meshing()
-    return {"counts": counts, "seconds": wall}
+    return {"counts": counts, "seconds": wall, "frames": frames, "root": root,
+            "urdf": out["urdf_path"]}
+
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: the parallel layer and the views
+
+# [12a]: the sharded Chamfer's cases, (N, M, masked): the top of the JAX
+# package's own shard sweep (dense scans), then sizes no split divides, with
+# bool masks
+SHARD_CASES = ((131072, 131072, False), (100003, 131071, True))
+AUTO_SHARD_M = 40000
+# [12c] and [12d]: four of [11]'s sequences at full width
+PAR_SEQS, PAR_FRAMES, PAR_K, PAR_HIDDEN, PAR_LR = 4, 3, 20, 512, 2e-4
+# the JAX package's tolerances for its sharded training step
+# (tests/test_parallel_native_viz.py): best losses and matrices
+STEP_RTOL, STEP_ATOL, STEP_M_ATOL = 1e-5, 1e-6, 1e-5
+REG_ATOL = 1e-5
+
+
+def _counted(fn):
+    """``(result, wall s, launch counts)`` of one call, device synchronised,
+    the kernels' counts set to 0 just before it."""
+    from autourdf_tpu_torch.ops import knn
+
+    knn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, dict(knn.launch_counts)
+
+
+def _shard_case(c: dict, dev):
+    x = torch.from_numpy(c["x"]).to(dev).requires_grad_(True)
+    y = torch.from_numpy(c["y"]).to(dev).requires_grad_(True)
+    xm = None if c["xm"] is None else torch.from_numpy(c["xm"]).to(dev)
+    ym = None if c["ym"] is None else torch.from_numpy(c["ym"]).to(dev)
+    return x, y, xm, ym
+
+
+def _masked_copy(x, m):
+    from autourdf_tpu_torch.ops.knn import PAD_COORD
+
+    return x.detach() if m is None else torch.where(m[:, None], x.detach(), PAD_COORD)
+
+
+def rank_sp2_dp2(cases: list, reg: dict) -> dict:
+    """[12a], [12b] and [12d] in each of two ranks on the one card: mesh (2,)
+    "sp" for the sharded Chamfer and its auto-shard, mesh (2,) "dp" for the
+    registration.  Returns what the parent checks, the wall times and the
+    launch counts of the counted calls."""
+    import autourdf_tpu_torch.parallel.sharding as sh
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.ops import chamfer
+    from autourdf_tpu_torch.registration import (RegistrationConfig, SegmentInit,
+                                                 predicted_world_points)
+
+    mesh = sh.make_mesh((2,), ("sp",))
+    dev = mesh.device
+    out = {"cases": [], "counts": collections.Counter()}
+    for c in cases:
+        x, y, xm, ym = _shard_case(c, dev)
+        sh.sharded_chamfer(mesh, x, y, xm, ym).backward()        # warm-up
+        x.grad = y.grad = None
+
+        def step():
+            loss = sh.sharded_chamfer(mesh, x, y, xm, ym)
+            loss.backward()
+            return loss.detach()
+
+        loss, wall, counts = _counted(step)
+        out["counts"].update(counts)
+        _, idx, _, _ = sh.sharded_search(mesh, _masked_copy(x, xm)[None],
+                                         _masked_copy(y, ym)[None])
+        out["cases"].append({"loss": loss, "gx": x.grad, "gy": y.grad, "idx": idx[0],
+                             "wall": wall, "counts": counts})
+
+    # [12b]: chamfer_distance dispatches by itself inside the scope
+    calls = []
+    orig = sh.sharded_chamfer
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    sh.sharded_chamfer = spy
+    try:
+        x = torch.from_numpy(reg["auto_x"]).to(dev)
+        y = torch.from_numpy(reg["auto_y"]).to(dev)
+        with sh.mesh_scope(mesh):
+            auto = chamfer.chamfer_distance(x, y)
+        out["auto"] = {"loss": auto, "calls": len(calls), "threshold": chamfer.AUTO_SHARD_MIN_M}
+    finally:
+        sh.sharded_chamfer = orig
+
+    # [12d]: the dp registration, then the forward-only Chamfer of its last
+    # registered frame against the raw one
+    dp = sh.make_mesh((2,), ("dp",))
+    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
+    cfg = RegistrationConfig(num_seg=PAR_K, hidden_dim=PAR_HIDDEN, epochs=EPOCHS)
+    init = SegmentInit(*(torch.from_numpy(a).to(dev) for a in reg["init"]))
+    to_t = lambda p: {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+    frames = torch.from_numpy(reg["frames"]).to(dev)
+
+    def register():
+        res = sh.register_sequences_sharded(dp, model, cfg, to_t(reg["step"]),
+                                            to_t(reg["anchor"]), init, frames)
+        with torch.no_grad():
+            resid = chamfer.chamfer_distance(predicted_world_points(res, PAR_FRAMES - 1),
+                                             frames[:, -1])
+        return res, resid
+
+    (res, resid), wall, counts = _counted(register)
+    out["counts"].update(counts)
+    out["reg"] = {"result": res, "resid": resid, "wall": wall, "counts": counts}
+    out["counts"] = dict(out["counts"])
+    return out
+
+
+def rank_dp_sp(step: dict) -> dict:
+    """[12c] in each of four ranks on the one card: ``train_step_dp_sp`` on
+    mesh (2, 2) ("dp", "sp")."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.parallel import make_mesh, train_step_dp_sp
+
+    mesh = make_mesh((2, 2), ("dp", "sp"))
+    dev = mesh.device
+    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
+    t = {k: torch.from_numpy(step[k]).to(dev) for k in ("mats", "targets", "points", "labels")}
+    params = {k: torch.from_numpy(v).to(dev) for k, v in step["params"].items()}
+    (best_m, best_l), wall, counts = _counted(lambda: train_step_dp_sp(
+        mesh, model, params, t["mats"], t["targets"], t["points"], t["labels"],
+        num_epochs=EPOCHS, lr=PAR_LR))
+    return {"best_m": best_m, "best_l": best_l, "wall": wall, "counts": counts}
+
+
+def _par_inputs(dev, frames: np.ndarray) -> tuple[dict, dict]:
+    """[12c] and [12d]'s inputs from four of [11]'s sequences: the port's
+    frame-0 segmentation at seed 0 (per sequence for the training step, of
+    sequence 0 for the registration, as ``run_registration`` does) and MLP
+    weights drawn from seed 1."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration import initial_segments
+
+    f = np.ascontiguousarray(frames[:PAR_SEQS, :PAR_FRAMES])
+    ft = torch.from_numpy(f).to(dev)
+    inits = [initial_segments(torch.Generator(device=dev).manual_seed(0), ft[s, 0], PAR_K,
+                              n_init=10) for s in range(PAR_SEQS)]
+    params = lambda seed: {k: v.detach().numpy() for k, v in PoseRegressor(
+        "q", PAR_HIDDEN, num_seqs=PAR_SEQS,
+        generator=torch.Generator().manual_seed(seed)).named_parameters()}
+    step = {"mats": torch.stack([i.matrices for i in inits]).cpu().numpy(),
+            "points": torch.stack([i.points for i in inits]).cpu().numpy(),
+            "labels": torch.stack([i.labels for i in inits]).cpu().numpy(),
+            "targets": f[:, 1], "params": params(1)}
+    reg = {"init": tuple(t.cpu().numpy() for t in inits[0][:3]), "frames": f,
+           "step": params(1), "anchor": params(2)}
+    return step, reg
+
+
+def _shard_inputs(seed: int = 0) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    cases = []
+    for n, m, masked in SHARD_CASES:
+        cases.append({"x": rng.normal(scale=0.3, size=(n, 3)).astype(np.float32),
+                      "y": rng.normal(scale=0.3, size=(m, 3)).astype(np.float32),
+                      "xm": rng.random(n) < 0.9 if masked else None,
+                      "ym": rng.random(m) < 0.85 if masked else None})
+    return cases
+
+
+def _check_shard_shapes(dev, cases: list) -> None:
+    """[12]'s kernels at the shapes its ranks give them, each held bit for
+    bit against its plain version on the same inputs, before any rank
+    starts: each rank's search in [12a] (x whole, masked points at the
+    sentinel, against the rank's ``ceil(M / 2)`` rows of y, as
+    ``sharded_search`` cuts them), a dp rank's search in [12c] (2
+    sequences of 5,000 points against an sp rank's 2,500 target rows) and
+    in [12d] (2 sequences against their whole 5,000-point frames, indexed
+    and min-only).  The [12c] and [12d] clouds carry forced ties."""
+    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.parallel.sharding import _shard_rows
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checks = []
+    for (n, m, masked), c in zip(SHARD_CASES, cases):
+        x, y = (torch.from_numpy(c[k]).to(dev) for k in ("x", "y"))
+        if masked:
+            x, y = (torch.where(torch.from_numpy(c[k]).to(dev)[:, None], t, knn.PAD_COORD)
+                    for k, t in (("xm", x), ("ym", y)))
+        for rank in range(2):
+            rows = _shard_rows(m, 2, rank)
+            checks.append((f"[12a] N={n}{' masked' if masked else ''}, rank {rank}'s "
+                           f"y[{rows.start}:{rows.stop}]", x[None], y[None, rows], False))
+    rng = np.random.default_rng(12)
+    for label, (S, N, M), light in (("[12c] a (dp, sp) rank", (PAR_SEQS // 2, 5000, 2500), False),
+                                    ("[12d] a dp rank", (PAR_SEQS // 2, 5000, 5000), True)):
+        x, y = (torch.from_numpy(a).to(dev) for a in tie_layout_clouds(rng, S, N, M))
+        checks.append((label, x, y, light))
+    for label, x, y, light in checks:
+        S, N, M = x.shape[0], x.shape[1], y.shape[1]
+        plan = knn.pick_bidir_plan(S, N, M, sms)
+        t0 = time.time()
+        ref = knn._nn_bidir_plain(x, y, 1)
+        torch.cuda.synchronize(dev)
+        plain_s = time.time() - t0
+        got = knn.nn_search_bidirectional(x, y, 1)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+        line = (f"  {label}: S={S} N={N} M={M}, {plan.kernel} (the plan's pick) equal to plain "
+                f"{same}")
+        if light:
+            same_min = all(torch.equal(a, b) for a, b in zip(
+                knn.nn_min_bidirectional(x, y, 1), knn._nn_min_bidir_plain(x, y, 1), strict=True))
+            line += f", nn_min_bidir equal to plain {same_min}"
+            same = same and same_min
+        print(f"{line}; plain search {plain_s:.3f} s")
+        if not same:
+            _fail(f"{label}: a search kernel disagrees with its plain version at S={S} N={N} M={M}")
+    torch.cuda.empty_cache()
+
+
+def run_parallel(dev, loop: dict) -> dict:
+    """Phase 12: the parallel layer with several ranks on the one card (gloo,
+    CUDA tensors), each against the single-process path on the card."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.ops import chamfer
+    from autourdf_tpu_torch.ops.knn import nn_search_bidirectional
+    from autourdf_tpu_torch.parallel import launch
+    from autourdf_tpu_torch.registration import (RegistrationConfig, SegmentInit,
+                                                 register_sequences_batched)
+    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init
+
+    note = "two ranks on one card, says nothing of multi-card scaling"
+    cases = _shard_inputs()
+    _check_shard_shapes(dev, cases)
+    step, reg = _par_inputs(dev, loop["frames"])
+    rng = np.random.default_rng(1)
+    reg["auto_x"] = rng.normal(scale=0.3, size=(AUTO_SHARD_M, 3)).astype(np.float32)
+    reg["auto_y"] = rng.normal(scale=0.3, size=(AUTO_SHARD_M, 3)).astype(np.float32)
+
+    t0 = time.time()
+    two = launch.run(rank_sp2_dp2, 2, (cases, reg), device="cuda")
+    t_two = time.time() - t0
+    t0 = time.time()
+    four = launch.run(rank_dp_sp, 4, (step,), device="cuda")
+    t_four = time.time() - t0
+    print(f"  spawned 2 ranks ([12a] [12b] [12d]) in {t_two:.3f} s and 4 ranks ([12c]) in "
+          f"{t_four:.3f} s of wall time, start-up included ({launch.backend_for('cuda', 2)}, "
+          f"{note})")
+
+    # [12a]
+    for i, ((n, m, masked), c) in enumerate(zip(SHARD_CASES, cases)):
+        x, y, xm, ym = _shard_case(c, dev)
+        chamfer.chamfer_distance(x, y, xm, ym).backward()
+        x.grad = y.grad = None
+
+        def single():
+            loss = chamfer.chamfer_distance(x, y, xm, ym)
+            loss.backward()
+            return loss.detach()
+
+        loss, wall, _ = _counted(single)
+        _, ix, _, _ = nn_search_bidirectional(_masked_copy(x, xm), _masked_copy(y, ym))
+        valid = torch.ones(n, dtype=torch.bool, device=dev) if xm is None else xm
+        for rank, r in enumerate(two):
+            rc = r["cases"][i]
+            errs = (abs(float(rc["loss"]) - float(loss)) / abs(float(loss)),
+                    float((rc["gx"].to(dev) - x.grad).abs().max()),
+                    float((rc["gy"].to(dev) - y.grad).abs().max()),
+                    int((rc["idx"].to(dev)[valid] != ix[valid]).sum()))
+            print(f"  [12a] N={n} M={m}{' bool masks' if masked else ''}, rank {rank}: loss "
+                  f"{float(rc['loss']):.9f} (single {float(loss):.9f}, rel err {errs[0]:.3e}), "
+                  f"max |dx.grad| {errs[1]:.3e}, max |dy.grad| {errs[2]:.3e}, indices that "
+                  f"differ {errs[3]}; forward + backward {rc['wall'] * 1e3:.3f} ms sharded "
+                  f"against {wall * 1e3:.3f} ms single-process ({note}); launches "
+                  f"{rc['counts']}")
+            if not (errs[0] <= CHAMFER_RTOL and errs[1] <= GRAD_ATOL and errs[2] <= GRAD_ATOL
+                    and errs[3] == 0):
+                _fail(f"[12a] the sharded Chamfer differs from the single-process one: {errs}")
+            if rc["counts"]["nn_bidir"] + rc["counts"]["nn_bidir_acc"] < 1:
+                _fail(f"[12a] rank {rank} did not launch an indexed search kernel")
+
+    # [12b]
+    x, y = (torch.from_numpy(reg[k]).to(dev) for k in ("auto_x", "auto_y"))
+    with torch.no_grad():
+        plain = float(chamfer.chamfer_distance(x, y))
+    for rank, r in enumerate(two):
+        a = r["auto"]
+        err = abs(float(a["loss"]) - plain) / plain
+        print(f"  [12b] rank {rank}: chamfer_distance at M={AUTO_SHARD_M} (threshold "
+              f"{a['threshold']}) inside mesh_scope: {a['calls']} sharded call(s), loss "
+              f"{float(a['loss']):.9f} against {plain:.9f} unscoped (rel err {err:.3e})")
+        if a["calls"] != 1 or err > CHAMFER_RTOL:
+            _fail("[12b] chamfer_distance did not shard inside the scope, or differs")
+
+    # [12c]
+    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
+    theta = model.flat_params({k: torch.from_numpy(v) for k, v in step["params"].items()})
+    mats = torch.from_numpy(step["mats"]).to(dev)
+
+    def plain_step():
+        carry = train_init(theta, mats, PAR_LR)
+        carry, _ = train_epochs(model, carry, mats, torch.from_numpy(step["targets"]).to(dev),
+                                torch.from_numpy(step["points"]).to(dev),
+                                torch.from_numpy(step["labels"]).to(dev), EPOCHS)
+        return carry
+
+    carry, wall, _ = _counted(plain_step)
+    for rank, r in enumerate(four):
+        dl = (r["best_l"].to(dev) - carry.best_loss).abs()
+        dm = float((r["best_m"].to(dev) - carry.best_m).abs().max())
+        print(f"  [12c] rank {rank}: train_step_dp_sp on (dp 2, sp 2), {PAR_SEQS} sequences, "
+              f"frame pair 0->1, K={PAR_K}, hidden {PAR_HIDDEN}, {EPOCHS} epochs: best losses "
+              f"{np.round(r['best_l'].numpy(), 7).tolist()}, max |loss - single| "
+              f"{float(dl.max()):.3e}, max |matrix - single| {dm:.3e}; {r['wall']:.3f} s "
+              f"against {wall:.3f} s single-process ({note}); launches {r['counts']}")
+        if not (bool((dl <= STEP_ATOL + STEP_RTOL * carry.best_loss.abs()).all())
+                and dm <= STEP_M_ATOL):
+            _fail("[12c] the (dp, sp) training step differs from the single-process one")
+        if r["counts"]["nn_bidir"] + r["counts"]["nn_bidir_acc"] < 1:
+            _fail(f"[12c] rank {rank} did not launch an indexed search kernel")
+
+    # [12d]
+    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
+    cfg = RegistrationConfig(num_seg=PAR_K, hidden_dim=PAR_HIDDEN, epochs=EPOCHS)
+    to_t = lambda p: {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+    ref, wall, _ = _counted(lambda: register_sequences_batched(
+        model, cfg, to_t(reg["step"]), to_t(reg["anchor"]),
+        SegmentInit(*(torch.from_numpy(a).to(dev) for a in reg["init"])),
+        torch.from_numpy(reg["frames"]).to(dev)))
+    for rank, r in enumerate(two):
+        g = r["reg"]
+        res = g["result"]
+        dl = float((res.losses.to(dev) - ref.losses).abs().max())
+        dlab = int((res.labels.to(dev) != ref.labels).sum())
+        print(f"  [12d] rank {rank}: register_sequences_sharded on dp 2, {PAR_SEQS} sequences x "
+              f"{PAR_FRAMES} frames, K={PAR_K}, hidden {PAR_HIDDEN}, {EPOCHS} epochs: losses "
+              f"{np.round(res.losses.numpy(), 7).tolist()}, max |loss - single| {dl:.3e}, "
+              f"labels that differ {dlab}, last-frame residual "
+              f"{[round(float(v), 9) for v in g['resid']]}; {g['wall']:.3f} s against "
+              f"{wall:.3f} s single-process ({note}); launches {g['counts']}")
+        if dl > REG_ATOL or dlab:
+            _fail("[12d] the dp registration differs from the single-process one")
+        if g["counts"]["nn_bidir"] + g["counts"]["nn_bidir_acc"] < 1 or \
+                g["counts"]["nn_min_bidir"] < 1:
+            _fail(f"[12d] rank {rank} did not launch the indexed and the min-only kernels")
+    counts = collections.Counter()
+    for r in two + four:
+        counts.update(r["counts"])
+    print(f"  launches of every rank: {dict(counts)}")
+    return {"counts": {k: counts.get(k, 0) for k in ("nn_bidir", "nn_min_bidir", "nn",
+                                                   "nn_bidir_acc")}}
+
+
+def read_png(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 of an 8-bit RGB PNG whose rows are unfiltered (filter
+    type 0, as ``viz.write_png`` writes them); checks the signature and every
+    chunk's CRC."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, ctype = head[:4]
+    if (depth, ctype) != (8, 2):
+        raise ValueError(f"{path}: bit depth {depth}, colour type {ctype}: not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise ValueError(f"{path}: filtered rows are not read")
+    return raw[:, 1:].reshape(h, w, 3).copy()
+
+
+def read_gif(path: str) -> tuple[list[np.ndarray], list[int], int | None]:
+    """A GIF's frames as (H, W, 3) uint8 (one global palette, whole
+    frames, as ``viz.write_gif`` writes them), each frame's delay in ms and
+    the loop count (None without a NETSCAPE extension)."""
+    import struct
+
+    data = open(path, "rb").read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path}: not a GIF")
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13
+    palette = None
+    if packed & 0x80:
+        n = 3 << ((packed & 7) + 1)
+        palette = np.frombuffer(data[pos:pos + n], np.uint8).reshape(-1, 3)
+        pos += n
+
+    def blocks(p):
+        out = bytearray()
+        while data[p]:
+            out += data[p + 1:p + 1 + data[p]]
+            p += 1 + data[p]
+        return bytes(out), p + 1
+
+    frames, delays, loop, delay = [], [], None, 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            body, pos = blocks(pos + 2)
+            if label == 0xF9:
+                delay = struct.unpack("<H", body[1:3])[0] * 10
+            elif label == 0xFF and body.startswith(b"NETSCAPE2.0"):
+                loop = struct.unpack("<H", body[12:14])[0]
+            continue
+        if data[pos] != 0x2C:
+            raise ValueError(f"{path}: unexpected block {data[pos]:#x}")
+        x0, y0, fw, fh, fpacked = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+        if (x0, y0, fw, fh) != (0, 0, w, h) or fpacked & 0xC0 or palette is None:
+            raise ValueError(f"{path}: partial, interlaced or locally coloured frames "
+                             f"are not read")
+        min_size = data[pos + 10]
+        code, pos = blocks(pos + 11)
+        frames.append(palette[_lzw_decode(code, min_size, w * h)].reshape(h, w, 3))
+        delays.append(delay)
+    return frames, delays, loop
+
+
+def _lzw_decode(code: bytes, min_size: int, count: int) -> np.ndarray:
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    bits = int.from_bytes(code, "little")
+    nbits, pos = len(code) * 8, 0
+    out = bytearray()
+    table, size, prev = None, min_size + 1, None
+    while pos + size <= nbits:
+        c = (bits >> pos) & ((1 << size) - 1)
+        pos += size
+        if c == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            size, prev = min_size + 1, None
+            continue
+        if c == eoi:
+            break
+        if prev is None:
+            entry = table[c]
+        else:
+            entry = table[c] if c < len(table) else prev + prev[:1]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+        out += entry
+        prev = entry
+        if len(table) == (1 << size) and size < 12:
+            size += 1
+    if len(out) != count:
+        raise ValueError(f"LZW data gives {len(out)} pixels, expected {count}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def run_view(loop: dict) -> dict:
+    """Phase 13: ``cli view --sweep --interactive`` on [11]'s recovered URDF;
+    every output must parse."""
+    import re
+
+    from autourdf_tpu_torch import cli
+    from autourdf_tpu_torch.urdf.parser import load_urdf
+
+    out_dir = os.path.join(loop["root"], "view")
+    log = os.path.join(loop["root"], "cli_view.log")
+    t0 = time.time()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(["view", "--urdf", loop["urdf"], "--out-dir", out_dir, "--sweep",
+                       "--interactive"])
+    wall = time.time() - t0
+    with open(log) as f:
+        outs = json.loads(f.read().splitlines()[-1])["outputs"]
+    joints = [j.name for j in load_urdf(loop["urdf"], load_meshes=False).revolute_joints]
+    expect = [os.path.join(out_dir, "snapshot.png"), os.path.join(out_dir, "interactive.html")]
+    expect += [os.path.join(out_dir, f"sweep_{j}.gif") for j in joints]
+    print(f"  cli view: exit {rc}, {wall:.3f} s (host work); {len(outs)} outputs for "
+          f"{len(joints)} revolute joints")
+    if rc != 0 or sorted(outs) != sorted(expect):
+        _fail(f"cli view exited {rc} with outputs {outs}, expected {expect}")
+    png = read_png(expect[0])
+    drawn = int((png != 255).any(-1).sum())
+    red = int(((png[..., 0] == 255) & (png[..., 1] == 0) & (png[..., 2] == 0)).sum())
+    print(f"  snapshot.png: {png.shape[1]} x {png.shape[0]}, {drawn} pixels drawn, {red} of "
+          f"them axis red")
+    if drawn < 1000 or red < 10:
+        _fail("the snapshot drew no robot or no joint axis")
+    html = open(expect[1]).read()
+    m = re.search(r"const SCENE = (\{.*?\});\n", html, re.S)
+    scene = json.loads(m.group(1)) if m else {}
+    tris = sum(len(v["faces"]) // 3 for v in scene.get("links", {}).values())
+    print(f"  interactive.html: {len(html)} bytes, {len(scene.get('links', {}))} links, "
+          f"{len(scene.get('joints', []))} joints, {tris} triangles")
+    if not m or not tris or "http://" in html or "https://" in html:
+        _fail("interactive.html holds no scene, no triangles, or an external link")
+    for g in expect[2:]:
+        frames, delays, loop_count = read_gif(g)
+        moved = int(sum((a != b).any(-1).sum() for a, b in zip(frames, frames[1:])))
+        print(f"  {os.path.basename(g)}: {len(frames)} frames of {frames[0].shape[1]} x "
+              f"{frames[0].shape[0]}, {delays[0]} ms each, loop {loop_count}, {moved} pixels "
+              f"change between frames")
+        if len(frames) != 16 or set(delays) != {250} or loop_count != 0 or moved < 1:
+            _fail(f"{g}: {len(frames)} frames, delays {set(delays)}, loop {loop_count}, "
+                  f"{moved} pixels moved")
+    return {"seconds": wall}
 
 
 def main() -> int:
@@ -1641,7 +2166,12 @@ def main() -> int:
         paths["urdf_chain_options"] = run_chain_options(dev, main_path["cfg"])
         print("[11] the closed loop: cli all (dataset -> register -> urdf -> evaluate) on the "
               "tracked wx200 estimate")
-        paths["closed_loop"] = run_closed_loop(dev, roots["loop"])
+        paths["closed_loop"] = loop = run_closed_loop(dev, roots["loop"])
+        print("[12] the parallel layer: sharded Chamfer, auto-shard, (dp, sp) training step and "
+              "dp registration, several ranks on the one card, on [11]'s clouds")
+        paths["parallel"] = run_parallel(dev, loop)
+        print("[13] cli view --sweep --interactive on [11]'s recovered URDF")
+        run_view(loop)
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",

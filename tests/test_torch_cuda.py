@@ -390,6 +390,38 @@ def test_refine_chain_on_card_matches_cpu(cuda):
     assert a.step_losses[-1] < a.step_losses[0]
 
 
+@pytest.mark.parametrize("n", [1, 33, 4988, 5000, 100003, 131072])
+def test_batch_invariant_sums_on_card(cuda, n):
+    """``ops.reduce.row_sums`` gives each row of a batch of 5 the bits it
+    gets alone (the card's plain ``sum(-1)`` groups a row's additions by the
+    number of rows), and so does a sequence's Chamfer, with and without its
+    gradient."""
+    from autourdf_tpu_torch.ops.reduce import row_sums
+
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy(rng.normal(size=(5, n)).astype(np.float32)).to(cuda)
+    got = row_sums(v)
+    for i in range(5):
+        assert torch.equal(row_sums(v[i:i + 1])[0], got[i]) and torch.equal(row_sums(v[i]), got[i])
+    if n < 4988:
+        return
+    x = torch.from_numpy(rng.normal(scale=0.3, size=(5, n, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(scale=0.3, size=(5, 4096, 3)).astype(np.float32)).to(cuda)
+    xm = torch.from_numpy(rng.random((5, n)) < 0.9).to(cuda)
+    xg = x.clone().requires_grad_(True)
+    with torch.no_grad():
+        fwd = chamfer_distance(x, y, xm)
+    loss = chamfer_distance(xg, y, xm)
+    loss.sum().backward()
+    for i in range(5):
+        xi = x[i:i + 1].clone().requires_grad_(True)
+        with torch.no_grad():
+            assert torch.equal(chamfer_distance(x[i:i + 1], y[i:i + 1], xm[i:i + 1])[0], fwd[i])
+        alone = chamfer_distance(xi, y[i:i + 1], xm[i:i + 1])
+        alone.sum().backward()
+        assert torch.equal(alone[0], loss[i]) and torch.equal(xi.grad[0], xg.grad[i])
+
+
 def test_registration_is_reproducible_on_card(cuda, tmp_path):
     """Two registrations of the same real scans at the same seed on the card
     give the same matrices, labels and losses, bit for bit."""

@@ -1,6 +1,6 @@
 """The port stands alone: no file of autourdf_tpu_torch/, nor chip_smoke.py,
 imports jax, flax or the JAX package, nor scikit-learn, networkx or
-matplotlib (absent from the machine with the card), and importing every
+matplotlib or PIL (absent from the machine with the card), and importing every
 module of the port loads none of them."""
 
 import ast
@@ -11,7 +11,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "autourdf_tpu", "sklearn", "networkx", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "flax", "autourdf_tpu", "sklearn", "networkx", "matplotlib",
+             "PIL")
 
 
 def _port_files():

@@ -82,6 +82,22 @@ def test_sequence_batch_equals_per_sequence():
         np.testing.assert_allclose(tm[1][s].numpy(), np.asarray(jd[2]), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 157, 4988, 100003])
+def test_row_sums_per_row_and_against_float64(n):
+    """``ops.reduce.row_sums`` gives each row the sum it gets alone, bit for
+    bit, within float32 rounding of the float64 sum."""
+    from autourdf_tpu_torch.ops.reduce import row_sums
+
+    v = torch.from_numpy(np.random.default_rng(n).normal(size=(2, 5, n)).astype(np.float32))
+    got = row_sums(v)
+    assert got.shape == (2, 5)
+    for i in range(5):
+        torch.testing.assert_close(row_sums(v[:, i]), got[:, i], rtol=0, atol=0)
+        torch.testing.assert_close(row_sums(v[1, i]), got[1, i], rtol=0, atol=0)
+    np.testing.assert_allclose(got.double().numpy(), v.double().sum(-1).numpy(), rtol=0,
+                               atol=2e-7 * max(n, 1) ** 0.5 * 8)
+
+
 def test_column_tile_fold_first_tile_on_ties():
     # the fold the CUDA wrapper applies to the kernel's (S, tiles, M)
     # partials: minimum over tiles, the first tile winning a tie
