@@ -188,3 +188,21 @@ def params_from_jax(tree, mode: str) -> dict[str, torch.Tensor]:
         out[f"{name}_w"] = torch.from_numpy(np.array(kernel))
         out[f"{name}_b"] = torch.from_numpy(np.array(bias))
     return out
+
+
+def params_to_jax(state_dict: dict[str, torch.Tensor], mode: str) -> dict:
+    """The inverse of :func:`params_from_jax`: a state dict of the port's
+    ``PoseRegressor`` (leading ``S`` axis) as a flax parameter tree,
+    ``{"params": {"_Dense_0": {"kernel", "bias"}, "_MLPHead_0": {...}, ...}}``
+    with numpy ``float32`` leaves that keep the ``S`` axis: one MLP a
+    sequence, the stack ``jax.vmap(init)`` makes.  Index a leaf's first axis
+    for one sequence's tree."""
+    hidden = state_dict["encoder_w"].shape[-1]
+    tree: dict = {}
+    for name, _, _ in layer_shapes(mode, hidden):
+        node = tree
+        for key in _FLAX_PATH[name]:
+            node = node.setdefault(key, {})
+        node["kernel"] = state_dict[f"{name}_w"].detach().cpu().numpy().astype(np.float32)
+        node["bias"] = state_dict[f"{name}_b"].detach().cpu().numpy().astype(np.float32)
+    return {"params": tree}

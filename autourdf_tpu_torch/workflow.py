@@ -111,6 +111,22 @@ def run_dataset(cfg: PipelineConfig, asset_root: str | None = None,
         return collect(cfg, asset_root=asset_root, ground=ground, epochs=epochs, device=dev)
 
 
+def _draw_weights(num_seqs: int, seed: int, device: str | torch.device = "cuda",
+                  mode: str = "q", hidden_dim: int = 512):
+    """The registration's initial MLPs: ``(model, step_params,
+    anchor_params)``, one MLP a sequence and phase, drawn on the CPU from a
+    ``torch.Generator`` seeded ``seed + 1`` (the step MLPs first), so a seed
+    gives the same weights on every machine; then moved to ``device``."""
+    from .models.regmlp import PoseRegressor
+
+    wgen = torch.Generator().manual_seed(seed + 1)
+    model = PoseRegressor(mode, hidden_dim, num_seqs=num_seqs, generator=wgen, device=device)
+    step_params = {k: v.detach() for k, v in model.named_parameters()}
+    anchor_params = {k: v.detach() for k, v in PoseRegressor(
+        mode, hidden_dim, num_seqs=num_seqs, generator=wgen, device=device).named_parameters()}
+    return model, step_params, anchor_params
+
+
 def run_registration(
     cfg: PipelineConfig,
     seed: int = 0,
@@ -127,7 +143,6 @@ def run_registration(
     run statistics and, under ``"result"``, the device-resident
     :class:`~autourdf_tpu_torch.registration.SequenceResult`.
     """
-    from .models.regmlp import PoseRegressor
     from .registration import RegistrationConfig, initial_segments, register_sequences_batched
 
     dev = resolve_device(device)
@@ -151,12 +166,7 @@ def run_registration(
                             use_normals=use_normals,
                             mask=masks_t[0, 0] if masks_t is not None else None)
 
-    # one MLP per sequence and phase; weights drawn on the CPU from the seed
-    wgen = torch.Generator().manual_seed(seed + 1)
-    model = PoseRegressor(cfg.rot, 512, num_seqs=S, generator=wgen, device=dev)
-    step_params = {k: v.detach() for k, v in model.named_parameters()}
-    anchor_params = {k: v.detach() for k, v in PoseRegressor(
-        cfg.rot, 512, num_seqs=S, generator=wgen, device=dev).named_parameters()}
+    model, step_params, anchor_params = _draw_weights(S, seed, dev, cfg.rot)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -173,21 +183,10 @@ def run_registration(
                                seconds_compute=round(elapsed, 3)):
         pass
 
-    all_points = result.local_points.cpu().numpy()
-    all_labels = result.labels.cpu().numpy()
     all_losses = result.losses.cpu().numpy()
     all_step_losses = result.step_losses.cpu().numpy()
-    for s, name in enumerate(names):
-        lp, lb = all_points[s], all_labels[s]
-        if masks is not None:
-            # drop sentinel-padded rows.  Frame 0 of EVERY sequence is the
-            # shared init (sequence 0's frame-0 segmentation), so its rows
-            # follow the init's own mask
-            row_mask = [masks[0, 0]] + [masks[s, t] for t in range(1, lp.shape[0])]
-            lp = [lp[t][row_mask[t]] for t in range(lp.shape[0])]
-            lb = [lb[t][row_mask[t]] for t in range(len(lb))]
-        save_registration(os.path.join(cfg.part_dir(), name), all_matrices[s], lp, lb,
-                          all_losses[s])
+    _save_registrations(cfg, names, all_matrices, result.local_points.cpu().numpy(),
+                        result.labels.cpu().numpy(), all_losses, masks)
     return {
         "names": names,
         "device": str(dev),
@@ -198,6 +197,23 @@ def run_registration(
         "mean_step_loss": float(np.mean(all_step_losses)),
         "result": result,
     }
+
+
+def _save_registrations(cfg: PipelineConfig, names: list[str], matrices: np.ndarray,
+                        local_points: np.ndarray, labels: np.ndarray, losses: np.ndarray,
+                        masks: np.ndarray | None) -> None:
+    """Write a batched registration's ``(S, T, ...)`` arrays as one part
+    directory a sequence under ``cfg.part_dir()``, valid rows only."""
+    for s, name in enumerate(names):
+        lp, lb = local_points[s], labels[s]
+        if masks is not None:
+            # drop sentinel-padded rows.  Frame 0 of EVERY sequence is the
+            # shared init (sequence 0's frame-0 segmentation), so its rows
+            # follow the init's own mask
+            row_mask = [masks[0, 0]] + [masks[s, t] for t in range(1, lp.shape[0])]
+            lp = [lp[t][row_mask[t]] for t in range(lp.shape[0])]
+            lb = [lb[t][row_mask[t]] for t in range(len(lb))]
+        save_registration(os.path.join(cfg.part_dir(), name), matrices[s], lp, lb, losses[s])
 
 
 def build_coord_maps(cfg: PipelineConfig, num_videos: int | None = None,

@@ -390,6 +390,32 @@ def test_refine_chain_on_card_matches_cpu(cuda):
     assert a.step_losses[-1] < a.step_losses[0]
 
 
+def test_refine_chain_on_card_matches_cpu_at_default_length(cuda):
+    """The same hinge at the urdf stage's default 1,200 steps, card against
+    CPU, as geometry (the CPU port and the JAX package agree there to 1.7e-5
+    degrees in the axis, 2.5e-6 in the origin's distance from the axis line
+    and 1.5e-6 relative in the loss; ``test_torch_chain_long.py``): the
+    card's fit is held to the tolerances of that CPU test."""
+    from autourdf_tpu_torch.joints.chain import refine_chain
+
+    links, joints, cms, frames = _hinge_chain_inputs()
+    out = {d: refine_chain(links, joints, cms, frames, steps=1200, points_per_link=256,
+                           device=d)[1] for d in ("cpu", cuda)}
+    a, b = out[cuda], out["cpu"]
+    ang = np.degrees(np.arctan2(np.linalg.norm(np.cross(a.axes, b.axes), axis=1),
+                                np.abs(np.sum(a.axes * b.axes, axis=1))))
+    d = a.origins - b.origins
+    line = np.linalg.norm(d - np.sum(d * b.axes, axis=1, keepdims=True) * b.axes, axis=1)
+    gaps = dict(axis_deg=float(ang.max()), origin_line=float(line.max()),
+                loss_rel=abs(a.loss - b.loss) / b.loss,
+                theta=float(np.abs(a.thetas - b.thetas).max()))
+    print(f"card against CPU, hinge, 1,200 steps: {gaps}")
+    tol = dict(axis_deg=1e-3, origin_line=1e-5, loss_rel=1e-5, theta=1e-4)
+    for key, t in tol.items():
+        assert gaps[key] <= t, (key, gaps)
+    assert a.step_losses.shape == (1200,) and a.loss < a.step_losses[0]
+
+
 @pytest.mark.parametrize("n", [1, 33, 4988, 5000, 100003, 131072])
 def test_batch_invariant_sums_on_card(cuda, n):
     """``ops.reduce.row_sums`` gives each row of a batch of 5 the bits it
