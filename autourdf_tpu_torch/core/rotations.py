@@ -34,7 +34,7 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     """Conjugate ``(w, -x, -y, -z)`` of a ``(..., 4)`` quaternion."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_invert(q: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ def make_transform(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     rot = rot.expand(batch + (3, 3))
     trans = trans.expand(batch + (3,))
     top = torch.cat([rot, trans[..., :, None]], dim=-1)
-    bottom = rot.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
+    # built on the device (a list would be a host copy, which a captured
+    # program cannot hold)
+    bottom = torch.eye(4, dtype=rot.dtype, device=rot.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

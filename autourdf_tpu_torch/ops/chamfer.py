@@ -88,11 +88,16 @@ def _scatter_add_points(like: torch.Tensor, idx: torch.Tensor, vals: torch.Tenso
     ``index_put_`` with ``accumulate=True`` sorts the indices and sums each
     target's values in their order, on the card as on the CPU, so the sums
     are the same every run (``index_add_`` on the card adds with float
-    atomics in arrival order, and a registration would vary run to run)."""
+    atomics in arrival order, and a registration would vary run to run).
+    It is called without the range check (``unsafe``): on the card that
+    check reads the indices' extremes back to the host, which a captured
+    program cannot do; the indices are a search's, in range by construction.
+    The same sorted kernel runs either way."""
     S, n = like.shape[0], like.shape[1]
     offs = torch.arange(S, device=idx.device)[:, None] * n
     out = torch.zeros((S * n, 3), dtype=like.dtype, device=like.device)
-    out.index_put_(((idx + offs).reshape(-1),), vals.reshape(-1, 3), accumulate=True)
+    torch.ops.aten._index_put_impl_(out, ((idx + offs).reshape(-1),), vals.reshape(-1, 3),
+                                    True, True)
     return out.view(S, n, 3)
 
 

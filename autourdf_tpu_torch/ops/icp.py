@@ -50,6 +50,8 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     sc = src - src_mean[:, None, :]
     dc = dst - dst_mean[:, None, :]
     H = torch.einsum("bni,bnj->bij", sc * ws, dc)
+    # torch.linalg.svd waits on the host on CUDA (PyTorch reads the solver's
+    # error codes back), so the ICPs stay outside the captured programs
     U, _, Vt = torch.linalg.svd(H)
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     det = torch.linalg.det(V @ Ut)

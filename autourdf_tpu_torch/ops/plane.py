@@ -65,6 +65,9 @@ def estimate_normals(points: torch.Tensor, k: int = 30, chunk: int = 1024) -> to
     neigh = points[torch.cat(idx)]                                  # (N, k, 3)
     centered = neigh - torch.mean(neigh, dim=1, keepdim=True)
     cov = torch.einsum("nki,nkj->nij", centered, centered)
+    # torch.linalg.eigh waits on the host on CUDA (PyTorch reads the solver's
+    # error codes back), so the normals and the --normal resample stay
+    # outside the captured programs
     _, vecs = torch.linalg.eigh(cov)
     normals = vecs[..., 0]
     return torch.where(normals[:, 2:3] < 0, -normals, normals)

@@ -17,15 +17,24 @@ Semantics, as in the JAX module:
   patience=5, rel threshold 1e-4);
 - early stop after ``stop_patience`` epochs without a new best: later
   epochs freeze (the carry passes through), matching the reference's break.
+
+:func:`train_pose_mlp` runs as the JAX driver's ``_batched_phases`` does:
+a start program (``train_init``) and chunk programs of
+:func:`train_epochs`, ``dispatch_epochs`` epochs each, captured once per
+shape as CUDA graphs and replayed (``utils/programs.py``; on the CPU the same
+programs run without capture).  ``eager=True`` runs the plain loop, the
+reference the programs are held against.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..ops.chamfer import chamfer_correspondences, chamfer_distance, chamfer_from_indices
+from ..utils import programs
 
 
 def apply_pose_rows(rows: torch.Tensor, points: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -251,6 +260,16 @@ def train_finalize(carry: TrainCarry, losses: torch.Tensor) -> TrainResult:
     return TrainResult(carry.theta, carry.best_m, carry.best_loss, losses)
 
 
+def epoch_chunks(epochs: int, dispatch_epochs: int, corr_every: int = 1) -> list[int]:
+    """The epochs of each training program call: ``dispatch_epochs``
+    rounded down to whole rounds of ``corr_every`` (at least one round), the
+    last chunk shorter, as the JAX driver cuts them
+    (``autourdf_tpu/registration/pipeline.py`` ``train_phase``)."""
+    ce = max(1, corr_every)
+    chunk = max(ce, (dispatch_epochs // ce) * ce)
+    return [min(chunk, epochs - done) for done in range(0, epochs, chunk)]
+
+
 def train_pose_mlp(
     model,
     theta: torch.Tensor,
@@ -266,17 +285,37 @@ def train_pose_mlp(
     scheduler_patience: int = 5,
     scheduler_factor: float = 0.7,
     corr_every: int = 1,
+    dispatch_epochs: int = 100,
+    eager: bool = False,
 ) -> TrainResult:
     """Optimize the pose MLPs of a sequence batch against one target frame.
 
     ``theta (S, P)`` are the flat parameters (``model.flat_params()``);
     ``matrices`` are the incoming poses, the MLP input every epoch (the
     reference re-clones them each epoch and never feeds back its output).
+    The start program and the chunk programs of :func:`epoch_chunks` run
+    the epochs (a shorter last chunk is a program of its own); ``eager=True``
+    runs them as one plain loop instead.
     """
-    carry = train_init(theta, matrices, learning_rate)
-    carry, losses = train_epochs(
-        model, carry, matrices, target, points, labels, epochs,
-        target_mask, points_mask, stop_patience,
-        scheduler_patience, scheduler_factor, corr_every,
-    )
-    return train_finalize(carry, losses)
+    steps = (stop_patience, scheduler_patience, scheduler_factor)
+    if eager:
+        carry = train_init(theta, matrices, learning_rate)
+        carry, losses = train_epochs(model, carry, matrices, target, points, labels, epochs,
+                                     target_mask, points_mask, *steps, corr_every)
+        return train_finalize(carry, losses)
+
+    carry = programs.run(("train_init", learning_rate),
+                         lambda th, m: train_init(th, m, learning_rate), theta, matrices)
+    losses = []
+    # the correspondence-refresh rounds are other operations: another family
+    family = "train_epochs" if corr_every <= 1 else "train_epochs_rounds"
+    for n in epoch_chunks(epochs, dispatch_epochs, corr_every):
+        def chunk(c, m, tgt, pts, lab, tm, pm, n=n):
+            return train_epochs(model, c, m, tgt, pts, lab, n, tm, pm, *steps, corr_every)
+
+        carry, chunk_losses = programs.run(
+            (family, model.mode, model.hidden_dim, n, *steps, corr_every), chunk,
+            carry, matrices, target, points, labels, target_mask, points_mask,
+            warm=functools.partial(chunk, n=max(1, corr_every)))
+        losses.append(chunk_losses.clone())
+    return train_finalize(programs.clone(carry), torch.cat(losses, dim=1))

@@ -83,7 +83,7 @@ def probe_k_selection(
     ``probe_steps``-step chain fit at ``points_per_link`` points, on
     ``device``.
     """
-    from ..joints.chain import refine_chain
+    from ..joints.chain import refine_chain, short_fit_dispatch
     from ..joints.screw import estimate_joints_from_tree
     from .coord_map import refine_groups_by_carry
 
@@ -133,7 +133,7 @@ def probe_k_selection(
                         links, joints, cms, frames, steps=probe_steps,
                         points_per_link=points_per_link,
                         frame_masks=frame_masks, freeze_probe=False,
-                        device=device,
+                        device=device, dispatch_steps=short_fit_dispatch(probe_steps),
                     )
                     val = min(val, float(result.loss))
                 except _DEGENERATE as e:  # degenerate candidate
@@ -323,7 +323,7 @@ def chain_fit_dof_search(
     ``scores`` are the penalized chain-fit losses (lower is better) for the
     shortlisted candidates.
     """
-    from ..joints.chain import refine_chain
+    from ..joints.chain import refine_chain, short_fit_dispatch
     from ..joints.screw import estimate_joints_from_tree
 
     cands = candidate_link_counts(d_map, link_range)
@@ -341,7 +341,7 @@ def chain_fit_dof_search(
             _, chain = refine_chain(
                 links, joints, sub_cms, sub_frames, steps=fit_steps,
                 points_per_link=points_per_link, freeze_probe=False,
-                device=device,
+                device=device, dispatch_steps=short_fit_dispatch(fit_steps),
             )
             loss = float(chain.loss)
         except _DEGENERATE as e:  # degenerate candidate

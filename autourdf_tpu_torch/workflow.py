@@ -127,6 +127,43 @@ def _draw_weights(num_seqs: int, seed: int, device: str | torch.device = "cuda",
     return model, step_params, anchor_params
 
 
+def registration_inputs(cfg: PipelineConfig, seed: int = 0, mlp_icp: bool = False,
+                        use_normals: bool = False, corr_every: int = 1,
+                        device: str | torch.device = "cuda") -> dict:
+    """What :func:`run_registration` hands the driver: the raw sequences
+    (sentinel-padded, with masks when ragged) on ``device``, the
+    ``RegistrationConfig`` (its ``dispatch_epochs`` from the frame size, as
+    the JAX workflow sets it), the frame-0 segmentation drawn from a
+    ``torch.Generator`` seeded with ``seed`` and the MLP weights from
+    ``seed + 1``."""
+    from .registration import RegistrationConfig, initial_segments
+
+    dev = resolve_device(device)
+    names, frames, masks = load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
+    S, T, N, _ = frames.shape
+    K = cfg.num_segments()
+    if corr_every > 1 and cfg.epochs % corr_every:
+        raise ValueError(
+            f"--epochs {cfg.epochs} must be a multiple of --corr-every {corr_every}")
+    # the epochs of one training program: 100 up to 5,000 points a frame,
+    # fewer above (the JAX workflow's rule, there to keep one TPU execution
+    # near its 5,000-point duration; here it sets the graphs' chunk)
+    dispatch = int(np.clip(100 * (5000.0 / max(N, 1)) ** 2, 25, 100))
+    reg_cfg = RegistrationConfig(num_seg=K, mode=cfg.rot, epochs=cfg.epochs, mlp_icp=mlp_icp,
+                                 use_normals=use_normals, corr_every=corr_every,
+                                 dispatch_epochs=dispatch)
+    frames_t = torch.from_numpy(frames).to(dev)
+    masks_t = torch.from_numpy(masks).to(dev) if masks is not None else None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = initial_segments(gen, frames_t[0, 0], K, n_init=10, seed_mode=cfg.seed_mode,
+                            use_normals=use_normals,
+                            mask=masks_t[0, 0] if masks_t is not None else None)
+    model, step_params, anchor_params = _draw_weights(S, seed, dev, cfg.rot)
+    return dict(names=names, masks=masks, device=dev, reg_cfg=reg_cfg, model=model,
+                step_params=step_params, anchor_params=anchor_params, init=init,
+                frames=frames_t, frame_masks=masks_t)
+
+
 def run_registration(
     cfg: PipelineConfig,
     seed: int = 0,
@@ -138,41 +175,27 @@ def run_registration(
 ) -> dict:
     """Register all sequences in one batch on ``device``; save artifacts.
 
-    The frame-0 segmentation and the initial MLP weights are drawn from
-    ``torch.Generator``s seeded with ``seed`` and ``seed + 1``.  Returns
-    run statistics and, under ``"result"``, the device-resident
-    :class:`~autourdf_tpu_torch.registration.SequenceResult`.
+    The inputs are :func:`registration_inputs`'; the driver is
+    ``register_sequences_batched`` (its phase programs: CUDA graphs on the
+    card).  Returns run statistics and, under ``"result"``, the
+    device-resident :class:`~autourdf_tpu_torch.registration.SequenceResult`.
     """
-    from .registration import RegistrationConfig, initial_segments, register_sequences_batched
+    from .registration import register_sequences_batched
 
-    dev = resolve_device(device)
-    names, frames, masks = load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
-    S, T, N, _ = frames.shape
-    K = cfg.num_segments()
+    inp = registration_inputs(cfg, seed, mlp_icp, use_normals, corr_every, device)
+    dev, names, masks = inp["device"], inp["names"], inp["masks"]
+    S, T, N, _ = inp["frames"].shape
     if verbose:
-        print(f"[register] {S} sequences x {T} frames x {N} points, K={K}, "
-              f"mode={cfg.rot}, device={dev}"
+        print(f"[register] {S} sequences x {T} frames x {N} points, "
+              f"K={inp['reg_cfg'].num_seg}, mode={cfg.rot}, device={dev}"
               + (" (ragged, masked)" if masks is not None else ""))
-    if corr_every > 1 and cfg.epochs % corr_every:
-        raise ValueError(
-            f"--epochs {cfg.epochs} must be a multiple of --corr-every {corr_every}")
-    reg_cfg = RegistrationConfig(num_seg=K, mode=cfg.rot, epochs=cfg.epochs, mlp_icp=mlp_icp,
-                                 use_normals=use_normals, corr_every=corr_every)
-
-    frames_t = torch.from_numpy(frames).to(dev)
-    masks_t = torch.from_numpy(masks).to(dev) if masks is not None else None
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    init = initial_segments(gen, frames_t[0, 0], K, n_init=10, seed_mode=cfg.seed_mode,
-                            use_normals=use_normals,
-                            mask=masks_t[0, 0] if masks_t is not None else None)
-
-    model, step_params, anchor_params = _draw_weights(S, seed, dev, cfg.rot)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.time()
-    result = register_sequences_batched(model, reg_cfg, step_params, anchor_params, init,
-                                        frames_t, masks_t)
+    result = register_sequences_batched(inp["model"], inp["reg_cfg"], inp["step_params"],
+                                        inp["anchor_params"], inp["init"], inp["frames"],
+                                        inp["frame_masks"])
     all_matrices = result.matrices.cpu().numpy()   # waits for the device
     elapsed = time.time() - t0
     frames_registered = S * (T - 1)
@@ -252,7 +275,7 @@ def _select_tree_by_chain_fit(candidates: dict, cms, frames, fmasks,
     clouds (a short probe fit per candidate, on ``device``; see
     run_build_urdf)."""
     from .joints import estimate_joints_from_tree
-    from .joints.chain import refine_chain
+    from .joints.chain import refine_chain, short_fit_dispatch
 
     best_name, best_links, best_loss = None, None, np.inf
     for name, links in candidates.items():
@@ -262,7 +285,8 @@ def _select_tree_by_chain_fit(candidates: dict, cms, frames, fmasks,
         else:
             _, result = refine_chain(links, joints, cms, frames,
                                      steps=probe_steps, points_per_link=1024,
-                                     frame_masks=fmasks, device=device)
+                                     frame_masks=fmasks, device=device,
+                                     dispatch_steps=short_fit_dispatch(probe_steps))
             loss = float(result.loss)
         if verbose:
             print(f"[urdf] tree candidate {name}: probe chain loss {loss:.5f}")

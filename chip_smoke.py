@@ -95,8 +95,20 @@ Phases, each of which fails the run on error:
     or on another structure where the registrations agree (losses within the
     tolerance, poses within ``SAME_DRAW_POSE_ATOL``, the same labels).
 
-Phase 4c registers the first 2 sequences x 4 frames of the real scans twice
-at seed 0 and fails unless the two runs are equal, bit for bit.
+15. the device programs (``autourdf_tpu_torch/utils/programs.py``, CUDA
+    graphs) against the eager loops: phase 4c's subset through the eager
+    loop, the batched driver's phase programs and the fused frame-pair
+    program, and phase 9b's chain fit for 120 steps eager and in 50-step
+    programs; every output must be equal bit for bit and every program's
+    capture and instantiation seconds, graph nodes and pool bytes are
+    printed.
+
+The main path of phases 4, 4c, 9, 11 and 14 runs the programs (phase 4
+prints its captures).  Phase 4b times a training epoch and phase 9b a
+chain-fit step eagerly and in programs: wall ms, the device's busy ms and the
+idle share.  Phase 4c registers the first 2 sequences x 4 frames of the real
+scans twice at seed 0 and fails unless the two runs are equal, bit for bit.
+The script prints its total seconds before the card's line.
 
 Phase 3 also holds the three kernels of a chain-fit step (S = 50 clouds of
 6 x 1,024 model points against the frames) against their plain versions
@@ -899,6 +911,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
     from autourdf_tpu_torch.ops.chamfer import chamfer_distance
     from autourdf_tpu_torch.registration import predicted_world_points
     from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.utils import programs
 
     os.symlink(os.path.join(REPO, "data_real", "raw"), os.path.join(root, "raw"))
     cfg = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS)
@@ -912,6 +925,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
     raw_mean = float(raw.mean())
 
     knn.reset_launch_counts()
+    made = len(programs.captures)
     torch.cuda.synchronize(dev)
     t0 = time.time()
     stats = workflow.run_registration(cfg, seed=0, corr_every=1, device=dev)
@@ -938,7 +952,8 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
           f"{[round(float(v), 9) for v in resid]}")
     print(f"  registration {stats['seconds']:.3f} s, {stats['frames_per_second']:.4f} frames/s "
           f"({S * (T - 1)} frame pairs); whole phase {wall:.3f} s; card: {gpu_line}")
-    print(f"  launches: {counts}")
+    print(f"  launches: {counts}; the registration's programs (CUDA graphs, captured in it):")
+    _print_captures(programs.captures[made:])
     if len(names) != 5 or T != 10:
         _fail(f"expected 5 sequences x 10 frames, got {len(names)} x {T}")
     if missing:
@@ -1138,15 +1153,35 @@ def run_large_cloud_path(dev, root: str) -> dict:
     return {"counts": counts, "seconds": stats["seconds"]}
 
 
-def profile_epochs(dev, n: int, epochs: int = 20) -> None:
-    """Where one training epoch's time goes at the main path's shape (5
-    sequences, K=20, hidden 512, n points): wall time per epoch without the
-    profiler, then the device's busy time per epoch and its top kernels
-    from torch.profiler over the same number of epochs."""
+def _wall_busy(dev, fn, units: int, reps: int = 2):
+    """Wall ms a unit (an epoch, a step) of ``fn`` over ``reps`` calls after
+    one warm call (a program's capture), then the device's busy ms a unit
+    and its kernels (torch.profiler over one more call)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    wall_ms = 1e3 * (time.time() - t0) / (reps * units)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / units, e.count / units)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, sum(r[1] for r in rows), rows
+
+
+def profile_epochs(dev, n: int) -> dict:
+    """Phase 4b: where one training epoch's time goes at the main path's
+    shape (5 sequences, K=20, hidden 512, n points), eager (20-epoch loops)
+    and graphed (a 300-epoch phase of three 100-epoch chunk programs): wall
+    ms an epoch, the device's busy ms an epoch, the idle share and the top
+    kernels (torch.profiler)."""
     from autourdf_tpu_torch.models.regmlp import PoseRegressor
-    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init
+    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init, train_pose_mlp
 
     S, K = 5, 20
     rng = np.random.default_rng(2)
@@ -1158,25 +1193,26 @@ def profile_epochs(dev, n: int, epochs: int = 20) -> None:
     labels = torch.from_numpy(rng.integers(0, K, (S, n))).to(dev)
     target = torch.from_numpy(rng.uniform(-0.2, 0.2, (S, n, 3))).float().to(dev)
 
-    def run(k):
+    def eager(k=20):
         carry = train_init(model.flat_params(), mats, 2e-4)
         train_epochs(model, carry, mats, target, pts, labels, k)
-        torch.cuda.synchronize(dev)
 
-    run(3)
-    t0 = time.time()
-    run(epochs)
-    wall_ms = 1e3 * (time.time() - t0) / epochs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(epochs)
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / epochs, e.count // epochs)
-            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows)
-    print(f"  per epoch (S={S}, N={n}, K={K}, hidden 512): wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}, "
-          f"{sum(r[2] for r in rows)} device kernels")
-    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"    {ms:.4f} ms x{cnt}  {key[:90]}")
+    def graphed():
+        train_pose_mlp(model, model.flat_params(), mats, target, pts, labels, epochs=EPOCHS,
+                       dispatch_epochs=100)
+
+    out = {}
+    for name, fn, units in (("eager", eager, 20), ("graphed", graphed, EPOCHS)):
+        wall_ms, busy, rows = _wall_busy(dev, fn, units)
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms)
+        print(f"  {name} epoch (S={S}, N={n}, K={K}, hidden 512): wall {wall_ms:.3f} ms, device "
+              f"busy {busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}, "
+              f"{sum(r[2] for r in rows):.1f} device kernels")
+        for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:6]:
+            print(f"    {ms:.4f} ms x{cnt:.1f}  {key[:90]}")
+    if not out["graphed"]["busy_ms"] > 0:
+        _fail("the profiler saw no device work in the graphed epochs")
+    return out
 
 
 # the entry points that run chain fits, each with the label its fits get
@@ -1288,11 +1324,38 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
     return {"counts": dict(knn.launch_counts)}, outs
 
 
-def profile_chain_steps(dev, cfg, out: dict) -> None:
+@contextlib.contextmanager
+def _step_loop_clock(dev, marks: list):
+    """Record (after a synchronise) the time at which a chain fit's step loop
+    starts: the first eager step or the first chunk program's call, so that a
+    fit's set-up on the host stays out of its per-step time."""
+    from autourdf_tpu_torch.joints import chain
+    from autourdf_tpu_torch.utils import programs
+
+    def first(fn):
+        def call(*a, **k):
+            if not marks:
+                torch.cuda.synchronize(dev)
+                marks.append(time.time())
+            return fn(*a, **k)
+        return call
+
+    step, run = chain._chain_step, programs.run
+    chain._chain_step, programs.run = first(step), first(run)
+    try:
+        yield marks
+    finally:
+        chain._chain_step, programs.run = step, run
+
+
+def profile_chain_steps(dev, cfg, out: dict) -> dict:
     """Phase 9b: where a chain-fit step's time goes, on a build's final links
-    and joints: wall ms a step (120 minus 20 steps, no profiler), the
-    device's busy ms a step and its kernels (torch.profiler, 60 minus 20
-    steps), the idle share and the search kernel's share."""
+    and joints, eager and graphed (chunk programs of 50 steps): wall ms a
+    step from the start of the step loop to the end of a 120-step fit (the
+    mean of two fits after a warm one, which captures the programs), the
+    device's busy ms a step (torch.profiler: the difference of 120- and
+    20-step fits), the idle share, the search kernels' share and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from autourdf_tpu_torch import workflow
@@ -1300,36 +1363,42 @@ def profile_chain_steps(dev, cfg, out: dict) -> None:
 
     cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
     frames, fmasks = workflow._load_refine_frames(cfg, 5)
-
-    def fit(steps):
-        torch.cuda.synchronize(dev)
-        t0 = time.time()
-        refine_chain(out["links"], out["joints"], cms, frames, steps=steps, points_per_link=1024,
-                     frame_masks=fmasks, freeze_probe=False, device=dev)
-        torch.cuda.synchronize(dev)
-        return time.time() - t0
-
-    fit(5)
-    wall_ms = 1e3 * (fit(120) - fit(20)) / 100
-    busy = {}
-    for steps in (20, 60):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fit(steps)
-        busy[steps] = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA}
-    per_step = {k: (busy[60].get(k, 0.0) - busy[20].get(k, 0.0)) / 40 for k in busy[60]}
-    busy_ms = sum(per_step.values())
-    search = sum(v for k, v in per_step.items() if "nn_" in k and "_kernel" in k)
     S, T, N = frames.shape[:3]
-    print(f"  chain step (S*T={S * T}, {len(out['links'])} links x 1024 points, frames of {N} "
-          f"points): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, device idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, search kernels {search:.3f} ms "
-          f"({search / max(busy_ms, 1e-9):.3f} of busy)")
-    for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {ms:.4f} ms a step  {key[:90]}")
-    if not (wall_ms > 0 and busy_ms > 0):
-        _fail("no chain-step time measured")
+    res = {}
+    for name in ("eager", "graphed"):
+        def fit(steps):
+            refine_chain(out["links"], out["joints"], cms, frames, steps=steps,
+                         points_per_link=1024, frame_masks=fmasks, freeze_probe=False,
+                         device=dev, eager=name == "eager")
+            torch.cuda.synchronize(dev)
+
+        fit(120)                     # captures the 50- and 20-step programs
+        loops = []
+        for _ in range(2):
+            with _step_loop_clock(dev, []) as marks:
+                fit(120)
+            loops.append(time.time() - marks[0])
+        wall_ms = 1e3 * sum(loops) / (2 * 120)
+        busy = {}
+        for steps in (20, 120):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fit(steps)
+            busy[steps] = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA}
+        per_step = {k: (busy[120].get(k, 0.0) - busy[20].get(k, 0.0)) / 100 for k in busy[120]}
+        busy_ms = sum(per_step.values())
+        search = sum(v for k, v in per_step.items() if "nn_" in k and "_kernel" in k)
+        res[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
+        print(f"  {name} chain step (S*T={S * T}, {len(out['links'])} links x 1024 points, "
+              f"frames of {N} points): wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+              f"device idle share {1 - busy_ms / wall_ms:.3f}, search kernels {search:.3f} ms "
+              f"({search / max(busy_ms, 1e-9):.3f} of busy)")
+        for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {ms:.4f} ms a step  {key[:90]}")
+        if not (wall_ms > 0 and busy_ms > 0):
+            _fail(f"no {name} chain-step time measured")
+    return res
 
 
 def run_chain_options(dev, cfg) -> dict:
@@ -2341,6 +2410,98 @@ def run_same_draw(dev, root: str) -> dict:
     return {"counts": counts}
 
 
+def _print_captures(records: list) -> None:
+    for r in records:
+        print(f"    program {r['name']}: capture {r['capture_s']:.3f} s, instantiate "
+              f"{r['instantiate_s']:.3f} s, "
+              f"{r['nodes']} nodes, pool {r['pool_bytes'] / 2**20:.1f} MiB, launches a call "
+              f"{r['launches']}")
+
+
+def run_programs(dev, root: str, cfg, build: dict) -> dict:
+    """Phase 15: the programs against the eager loops on the card.  [4c]'s
+    subset (2 sequences x 4 frames of the real scans, seed 0, K=20, hidden
+    512, 300 epochs) three ways: the eager loop, the batched driver's phase
+    programs and the fused frame-pair program, whose matrices, labels and
+    losses must be equal bit for bit; then [9b]'s chain fit (the known-DoF
+    build's links, 1,024 points a link) for 120 steps eager and in 50-step
+    programs, whose axes, origins, angles and step losses must be equal bit
+    for bit.  Every capture is made anew here and reported: capture and
+    instantiation seconds, graph nodes, pool bytes."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.config import PipelineConfig
+    from autourdf_tpu_torch.joints.chain import refine_chain
+    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.registration import (register_sequences_batched,
+                                                 register_sequences_fused)
+    from autourdf_tpu_torch.utils import programs
+
+    _real_scan_subset(root, 2, 4)
+    sub = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS,
+                         num_videos=2)
+    inp = workflow.registration_inputs(sub, seed=0, device=dev)
+    args = (inp["model"], inp["reg_cfg"], inp["step_params"], inp["anchor_params"], inp["init"],
+            inp["frames"], inp["frame_masks"])
+    programs.clear()
+    programs.captures.clear()
+    knn.reset_launch_counts()
+    regs, launched = {}, {}
+    for name, run in (("eager", lambda: register_sequences_batched(*args, eager=True)),
+                      ("batched", lambda: register_sequences_batched(*args)),
+                      ("fused", lambda: register_sequences_fused(*args))):
+        before = dict(knn.launch_counts)
+        made = len(programs.captures)
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        regs[name] = run()
+        torch.cuda.synchronize(dev)
+        seconds = time.time() - t0
+        launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+        print(f"  registration, {name}: {seconds:.3f} s (captures included), launches "
+              f"{launched[name]}")
+        _print_captures(programs.captures[made:])
+    S, T = inp["frames"].shape[:2]
+    for name in ("batched", "fused"):
+        a, b = regs[name], regs["eager"]
+        mat = float((a.matrices - b.matrices).abs().max())
+        labels = int((a.labels != b.labels).sum())
+        loss = max(float((a.losses - b.losses).abs().max()),
+                   float((a.step_losses - b.step_losses).abs().max()))
+        print(f"  {name} against eager ({S} sequences x {T} frames): max |matrix diff| {mat}, "
+              f"labels that differ {labels}, max |loss diff| {loss}")
+        if (mat, labels, loss) != (0.0, 0, 0.0) or not all(
+                torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields):
+            _fail(f"the {name} registration programs differ from the eager loop")
+        if launched[name] != launched["eager"]:
+            _fail(f"the {name} programs counted other launches than the eager loop: "
+                  f"{launched[name]} against {launched['eager']}")
+    if launched["eager"]["nn_bidir"] != (T - 1) * 2 * EPOCHS:
+        _fail(f"the eager registration launched nn_bidir {launched['eager']['nn_bidir']} times")
+
+    cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
+    frames, fmasks = workflow._load_refine_frames(cfg, 5)
+    fits = {}
+    for name in ("eager", "graphed"):
+        made = len(programs.captures)
+        before = dict(knn.launch_counts)
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        fits[name] = refine_chain(build["links"], build["joints"], cms, frames, steps=120,
+                                  points_per_link=1024, frame_masks=fmasks, freeze_probe=False,
+                                  device=dev, eager=name == "eager")[1]
+        torch.cuda.synchronize(dev)
+        launched[f"chain {name}"] = {k: knn.launch_counts[k] - before[k] for k in before}
+        print(f"  chain fit, {name}: 120 steps, {time.time() - t0:.3f} s (captures included), "
+              f"launches {launched[f'chain {name}']}")
+        _print_captures(programs.captures[made:])
+    gaps = {f: float(np.abs(getattr(fits["graphed"], f) - getattr(fits["eager"], f)).max())
+            for f in ("axes", "origins", "thetas", "step_losses")}
+    print(f"  graphed chain fit against eager: max |diff| {gaps}")
+    if any(gaps.values()) or launched["chain graphed"] != launched["chain eager"]:
+        _fail("the chain-fit programs differ from the eager loop")
+    return {"counts": dict(knn.launch_counts)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2350,6 +2511,7 @@ def main() -> int:
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.ops import _cuda
 
+    started = time.time()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     gpu_line = subprocess.run(
@@ -2423,6 +2585,11 @@ def main() -> int:
               f"({SAME_DRAW_RECORD})")
         os.makedirs(os.path.join(tmp, "same_draw"))
         paths["same_draw"] = run_same_draw(dev, os.path.join(tmp, "same_draw"))
+        print("[15] programs: the eager loops against the batched and fused registration "
+              "programs and the chain-fit programs, bit for bit")
+        os.makedirs(os.path.join(tmp, "programs"))
+        paths["programs"] = run_programs(dev, os.path.join(tmp, "programs"), main_path["cfg"],
+                                         builds["known DoF"])
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",
@@ -2452,6 +2619,7 @@ def main() -> int:
         if not all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                  "library_ms")):
             _fail(f"non-finite measurement for {k['name']}")
+    print(f"[total] {time.time() - started:.1f} s")
     print(f"[5] card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -490,3 +490,121 @@ def test_capture_on_card_matches_cpu(cuda):
     sub = pts[cpu]
     assert torch.equal(farthest_point_sample(sub.to(cuda), 5000).cpu(),
                        farthest_point_sample(sub, 5000))
+
+
+# ---------------------------------------------------------------------------
+# device programs (utils/programs.py): captured graphs against the eager loops
+# ---------------------------------------------------------------------------
+
+def _small_registration(dev, masked: bool):
+    """2 sequences x 3 frames of a hinge (about 300 points a frame, ragged
+    and sentinel-padded when ``masked``), K=4, hidden 32, with the init and
+    weights drawn from seeds."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration import initial_segments
+
+    rng = np.random.default_rng(3)
+    base = rng.uniform([-0.6, -0.15, -0.1], [-0.1, 0.15, 0.1], size=(160, 3))
+    arm = rng.uniform([0.1, -0.1, -0.08], [0.7, 0.1, 0.08], size=(160, 3))
+    frames = np.full((2, 3, 320, 3), knn.PAD_COORD, np.float32)
+    masks = np.zeros((2, 3, 320), bool)
+    for s, step in enumerate((0.10, 0.16)):
+        for t in range(3):
+            a = t * step
+            rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+            cloud = np.concatenate([base, arm @ rot.T])
+            n = 320 - (7 * (s + t) if masked else 0)
+            frames[s, t, :n] = cloud[rng.permutation(320)[:n]]
+            masks[s, t, :n] = True
+    ft = torch.from_numpy(frames).to(dev)
+    mt = torch.from_numpy(masks).to(dev) if masked else None
+    init = initial_segments(torch.Generator(device=dev).manual_seed(0), ft[0, 0], 4,
+                            mask=None if mt is None else mt[0, 0], kmeans_iters=8, n_init=2)
+    gen = torch.Generator().manual_seed(1)
+    model = PoseRegressor("q", 32, num_seqs=2, generator=gen, device=dev)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    return model, params, init, ft, mt
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["ragged", "dense"])
+def test_graphed_registration_equals_eager_on_card(cuda, masked):
+    """The batched driver's phase programs (chunks of 25 and 5 epochs) and
+    the fused frame-pair program, replayed as CUDA graphs, give the eager
+    loop's matrices, labels and losses bit for bit, with its launch counts."""
+    from autourdf_tpu_torch.registration import (RegistrationConfig, register_sequences_batched,
+                                                 register_sequences_fused)
+
+    model, params, init, ft, mt = _small_registration(cuda, masked)
+    cfg = RegistrationConfig(num_seg=4, hidden_dim=32, epochs=30, kmeans_iters=8,
+                             dispatch_epochs=25)
+    out, launched = {}, {}
+    for name, run in (("eager", lambda: register_sequences_batched(
+                           model, cfg, params, params, init, ft, mt, eager=True)),
+                      ("batched", lambda: register_sequences_batched(
+                           model, cfg, params, params, init, ft, mt)),
+                      ("fused", lambda: register_sequences_fused(
+                           model, cfg, params, params, init, ft, mt))):
+        for _ in range(2):      # the first graphed call captures, the second only replays
+            before = dict(knn.launch_counts)
+            out[name] = run()
+            torch.cuda.synchronize()
+            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+    for name in ("batched", "fused"):
+        for f in out["eager"]._fields:
+            assert torch.equal(getattr(out[name], f), getattr(out["eager"], f)), (name, f)
+        assert launched[name] == launched["eager"], (name, launched)
+    assert launched["eager"]["nn_bidir"] + launched["eager"]["nn_bidir_acc"] == 2 * 2 * 30
+
+
+def test_graphed_chain_fit_equals_eager_on_card(cuda):
+    """60 chain-fit steps in chunk programs of 25 (two graphs: 25 and 10
+    steps) against the eager step loop: axes, origins, angles, every step's
+    loss and the freeze deltas bit for bit, with the same launch counts."""
+    from autourdf_tpu_torch.joints.chain import refine_chain
+
+    links, joints, cms, frames = _hinge_chain_inputs()
+    res, launched = {}, {}
+    for name, kw in (("eager", dict(eager=True)), ("graphed", dict(dispatch_steps=25)),
+                     ("replayed", dict(dispatch_steps=25))):
+        before = dict(knn.launch_counts)
+        res[name] = refine_chain(links, joints, cms, frames, steps=60, points_per_link=256,
+                                 device=cuda, **kw)[1]
+        launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+    for name in ("graphed", "replayed"):
+        for f in ("axes", "origins", "thetas", "step_losses", "freeze_deltas"):
+            np.testing.assert_array_equal(getattr(res[name], f), getattr(res["eager"], f),
+                                          err_msg=f"{name} {f}")
+        assert launched[name] == launched["eager"], (name, launched)
+
+
+def test_program_launch_counts_on_card(cuda):
+    """A program that launches the indexed search counts one launch a call:
+    the warm-up's and the capture's launches are taken back out."""
+    from autourdf_tpu_torch.utils import programs
+
+    x, y = _clouds(2, 700, 333, True, cuda)
+    prog = programs.Program(lambda a, b: knn.nn_search_bidirectional(a, b, 1), "search")
+    before = dict(knn.launch_counts)
+    for i in range(7):
+        got = prog(x + i, y)
+        ref = knn._nn_bidir_plain(x + i, y, 1)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert knn.launch_counts["nn_bidir"] - before["nn_bidir"] == 7
+    assert prog.stats["launches"] == {"nn_bidir": 1} and prog.stats["capture_s"] > 0
+
+
+def test_program_that_waits_on_the_host_raises_on_card(cuda):
+    """A body that reads a value back to the host cannot be captured: the
+    program raises at every call (after its warm-up, an eager run whose
+    result is dropped) and never returns an eager result."""
+    from autourdf_tpu_torch.utils import programs
+
+    x = torch.arange(8.0, device=cuda)
+    prog = programs.Program(lambda a: a * float(a.sum()), "waits")
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            prog(x)
+        assert prog._graph is None and prog._outputs is None
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.arange(0.0, 16.0, 2.0, device=cuda))   # the card still works
