@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -32,6 +34,18 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
+# Kernel launch counts, one per wrapper: each adds one where it launches its
+# kernel and nowhere else, so a run can show the main path went through it
+# (the search kernels of knn.cu, then the geometry kernels of geom.cu).
+launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0,
+                 "fps": 0, "kabsch3": 0, "sym_eig3_min": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
 _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 _SIGNATURES = {
     "knn": {
@@ -43,6 +57,11 @@ _SIGNATURES = {
         "knn_nn_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
         "knn_bidir_acc_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _U64,
                                   _P], _I),
+    },
+    "geom": {
+        "geom_fps_launch": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
+        "geom_kabsch3_launch": ([_P, _P, _I, _P], _I),
+        "geom_sym_eig3_min_launch": ([_P, _P, _I, _P], _I),
     },
 }
 
@@ -93,6 +112,20 @@ def library(name: str = "knn") -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the launchers take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(fn, t: torch.Tensor, *args) -> int:
+    """Call the launcher ``fn`` on ``t``'s device (the current one, or the
+    tensors' device where that is another)."""
+    if t.device.index is None or t.device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(t.device):
+        return fn(*args)
 
 
 def check(err: int, what: str) -> None:

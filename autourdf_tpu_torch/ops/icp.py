@@ -1,15 +1,21 @@
 """Point-to-point ICP (port of autourdf_tpu.ops.icp; Open3D
 ``registration_icp`` semantics), batched.
 
-Used for the masked per-cluster refinement of ``register --mlp_icp`` and
-for the per-link canonical-frame refinement of the ``urdf`` stage.  Each
+Used for the masked per-cluster refinement of ``register --mlp_icp``, for
+the per-link canonical-frame refinement and the chain fit's polish of the
+``urdf`` stage and for the evaluation's re-simulation alignment.  Each
 iteration is one launch of the nearest-neighbour kernel for the whole batch
 (ops/knn.py ``nn_search``), correspondence-distance gating, a weighted
-Kabsch via batched 3x3 SVD, and a convergence freeze matching Open3D's
+Kabsch whose 3x3 rotations come from one launch of ``kabsch3_kernel``
+(``csrc/geom.cu``) on the card, and a convergence freeze matching Open3D's
 relative fitness/RMSE criteria.  Where the JAX module maps one ICP over
-clusters with ``vmap`` and iterates under ``lax.scan``, here the batch axis
-is written out and the loop is a Python loop whose state stays in tensors:
-nothing is read back from the device between iterations.
+clusters with ``vmap`` and iterates under ``lax.scan`` in one compiled
+program, here the batch axis is written out and the loop runs as one device
+program (``utils/programs.py``: a CUDA graph on the card) keyed by the
+shapes, the iteration count, the threshold and the relative criteria;
+``eager=True`` runs the same loop as plain Python, the reference the
+program is held against.  Nothing is read back from the device between
+iterations.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import programs
+from . import _cuda
 from .chamfer import _gather_points
 from .knn import PAD_COORD, nn_search
 
@@ -40,6 +48,48 @@ def _orthonormalize(R: torch.Tensor, steps: int = 4) -> torch.Tensor:
     return R
 
 
+def _kabsch_rotation_plain(H: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kabsch3_kernel``: ``V diag(1, 1, det(V U^T)) U^T``
+    of ``H = U S V^T``, ``(B, 3, 3) -> (B, 3, 3)``."""
+    U, _, Vt = torch.linalg.svd(H)
+    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    det = torch.linalg.det(V @ Ut)
+    D = torch.diag_embed(torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1))
+    return V @ D @ Ut
+
+
+def _kabsch_rotation_cuda(H: torch.Tensor) -> torch.Tensor:
+    """Replaces ``jnp.linalg.svd`` + ``det`` in the JAX module's ``_kabsch``
+    (autourdf_tpu/ops/icp.py:50), which ``torch.linalg.svd`` and ``det``
+    would do on the card only by reading the solver's status back to the
+    host.  One thread a matrix: one-sided Jacobi sweeps, a sort and a
+    Givens QR (csrc/geom.cu)."""
+    if H.dtype != torch.float32:
+        raise TypeError(f"kabsch3_kernel takes float32, got {H.dtype}")
+    H = H.contiguous()
+    R = torch.empty_like(H)
+    lib = _cuda.library("geom")
+    err = _cuda.launch(lib.geom_kabsch3_launch, H, H.data_ptr(), R.data_ptr(), H.shape[0],
+                       _cuda.stream(H))
+    _cuda.check(err, "kabsch3_kernel launch")
+    _cuda.launch_counts["kabsch3"] += 1
+    return R
+
+
+def kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
+    """The least-squares rotations of cross-covariances ``H (B, 3, 3)``:
+    ``V diag(1, 1, det(V U^T)) U^T`` of ``H = U S V^T`` (the reflection on
+    the smallest singular value).  The kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if H.dim() != 3 or H.shape[1:] != (3, 3) or H.shape[0] == 0:
+        raise ValueError(f"expected H (B >= 1, 3, 3), got {tuple(H.shape)}")
+    if H.is_cuda:
+        return _kabsch_rotation_cuda(H)
+    if H.device.type != "cpu":
+        raise ValueError(f"unsupported device {H.device}")
+    return _kabsch_rotation_plain(H)
+
+
 def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted least-squares rigid transforms src -> dst,
     ``(B, N, 3) x (B, N, 3) x (B, N) -> (B, 4, 4)``."""
@@ -50,13 +100,7 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     sc = src - src_mean[:, None, :]
     dc = dst - dst_mean[:, None, :]
     H = torch.einsum("bni,bnj->bij", sc * ws, dc)
-    # torch.linalg.svd waits on the host on CUDA (PyTorch reads the solver's
-    # error codes back), so the ICPs stay outside the captured programs
-    U, _, Vt = torch.linalg.svd(H)
-    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
-    det = torch.linalg.det(V @ Ut)
-    D = torch.diag_embed(torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1))
-    rot = _orthonormalize(V @ D @ Ut)
+    rot = _orthonormalize(kabsch_rotation(H))
     t = dst_mean - (rot @ src_mean[..., None])[..., 0]
     T = torch.eye(4, dtype=src.dtype, device=src.device).repeat(src.shape[0], 1, 1)
     T[:, :3, :3] = rot
@@ -64,29 +108,10 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return T
 
 
-def icp_point_to_point(
-    source: torch.Tensor,           # (N, 3) or (B, N, 3)
-    target: torch.Tensor,           # (M, 3) or (B, M, 3)
-    init: torch.Tensor | None = None,
-    max_iterations: int = 50,
-    threshold: float = 1.0,         # max correspondence distance (o3d arg)
-    source_mask: torch.Tensor | None = None,
-    target_mask: torch.Tensor | None = None,
-    relative_rmse: float = 1e-6,
-    relative_fitness: float = 1e-6,
-) -> ICPResult:
-    """Open3D-semantics p2p ICP of one cloud pair or of a batch of pairs.
-
-    ``max_iterations`` is a fixed bound; a batch entry that meets the
-    relative criteria freezes, the others go on.
-    """
-    squeeze = source.dim() == 2
-    if squeeze:
-        source, target, init, source_mask, target_mask = (
-            None if t is None else t[None]
-            for t in (source, target, init, source_mask, target_mask))
+def _icp_loop(source, target, T, source_mask, target_mask, max_iterations: int,
+              threshold: float, relative_rmse: float, relative_fitness: float):
+    """The ICP iterations on a batch: ``(T, fitness, rmse)``."""
     B, dev, dt = source.shape[0], source.device, source.dtype
-    T = torch.eye(4, dtype=dt, device=dev).repeat(B, 1, 1) if init is None else init
     tgt = (target if target_mask is None
            else torch.where(target_mask[..., None], target, PAD_COORD))
     src_w = (torch.ones(source.shape[:2], dtype=dt, device=dev) if source_mask is None
@@ -111,6 +136,44 @@ def icp_point_to_point(
         fitness = torch.where(done, fitness, fit_new)
         rmse = torch.where(done, rmse, rmse_new)
         done = done | conv
+    return T, fitness, rmse
+
+
+def icp_point_to_point(
+    source: torch.Tensor,           # (N, 3) or (B, N, 3)
+    target: torch.Tensor,           # (M, 3) or (B, M, 3)
+    init: torch.Tensor | None = None,
+    max_iterations: int = 50,
+    threshold: float = 1.0,         # max correspondence distance (o3d arg)
+    source_mask: torch.Tensor | None = None,
+    target_mask: torch.Tensor | None = None,
+    relative_rmse: float = 1e-6,
+    relative_fitness: float = 1e-6,
+    eager: bool = False,
+) -> ICPResult:
+    """Open3D-semantics p2p ICP of one cloud pair or of a batch of pairs.
+
+    ``max_iterations`` is a fixed bound; a batch entry that meets the
+    relative criteria freezes, the others go on.  The iterations run as one
+    program (``eager=False``) or as the plain loop (``eager=True``; also
+    what a caller that is itself being captured into a program runs).
+    """
+    squeeze = source.dim() == 2
+    if squeeze:
+        source, target, init, source_mask, target_mask = (
+            None if t is None else t[None]
+            for t in (source, target, init, source_mask, target_mask))
+    if init is None:
+        init = torch.eye(4, dtype=source.dtype, device=source.device).repeat(source.shape[0], 1, 1)
+    crit = (max_iterations, float(threshold), float(relative_rmse), float(relative_fitness))
+    if eager:
+        T, fitness, rmse = _icp_loop(source, target, init, source_mask, target_mask, *crit)
+    else:
+        # the first capture of the family warms up on one iteration
+        T, fitness, rmse = programs.clone(programs.run(
+            ("icp", *crit), lambda *a: _icp_loop(*a, *crit),
+            source, target, init, source_mask, target_mask,
+            warm=lambda *a: _icp_loop(*a, 1, *crit[1:])))
     if squeeze:
         return ICPResult(T[0], fitness[0], rmse[0])
     return ICPResult(T, fitness, rmse)
@@ -125,9 +188,11 @@ def masked_icp_clusters(
     scale: float = 1.2,
     threshold: float = 1.0,
     max_iterations: int = 30,
+    eager: bool = False,
 ) -> torch.Tensor:
     """Per-cluster AABB-masked ICP refinement of every cluster (of every
-    sequence) as one batch of ``S * K`` ICPs.
+    sequence) as one batch of ``S * K`` ICPs (``eager``: as in
+    :func:`icp_point_to_point`).
 
     For each cluster, the predicted world-frame AABB scaled by ``scale``
     gates the target points, then p2p ICP refines the cluster's 4x4 from
@@ -159,6 +224,7 @@ def masked_icp_clusters(
         threshold=threshold,
         source_mask=sel.reshape(S * K, N),
         target_mask=in_box.reshape(S * K, M),
+        eager=eager,
     )
     out = res.transform.reshape(S, K, 4, 4)
     return out[0] if squeeze else out

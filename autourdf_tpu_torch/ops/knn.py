@@ -34,9 +34,10 @@ Norm = Literal[1, 2]
 # small enough that squared distances stay well inside f32 range.
 PAD_COORD = 1e6
 
-# Kernel launch counts, one per wrapper: each adds one where it launches its
-# kernel and nowhere else, so a run can show the main path went through it.
-launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0}
+# Kernel launch counts of every wrapper of the port (ops/_cuda.py): the four
+# search kernels' and the geometry kernels'.
+launch_counts = _cuda.launch_counts
+reset_launch_counts = _cuda.reset_launch_counts
 
 # Block constants of the sweeps in csrc/knn.cu (bidir_sweep behind the two
 # indexed bidirectional kernels, light_sweep behind nn_kernel and
@@ -113,11 +114,6 @@ _LIGHT_KERNELS = ("nn", "nn_min_bidir")
 ACC_SCRATCH_BYTES = 16 * 1024 * 1024
 
 
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def _batched(x: torch.Tensor, y: torch.Tensor):
     if x.dim() != y.dim() or x.dim() not in (2, 3) or x.shape[-1] != 3 or y.shape[-1] != 3:
         raise ValueError(f"expected (N, 3)/(M, 3) or (S, N, 3)/(S, M, 3), got "
@@ -136,10 +132,6 @@ def _check_cuda(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.T
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"CUDA kernels take float32, got {x.dtype} and {y.dtype}")
     return x.contiguous(), y.contiguous()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -401,27 +393,23 @@ def _launch_sweep(x, y, norm: int, plan: SweepPlan):
         both = empty(S * (N + M), torch.float32)
         out = (both[:S * N].view(S, N), both[S * N:].view(S, M))
         fn = lib.knn_min_bidir_launch
-        args = (*head, plan.rows, plan.cols, plan.threads, both.data_ptr(), _stream(x))
+        args = (*head, plan.rows, plan.cols, plan.threads, both.data_ptr(), _cuda.stream(x))
     elif plan.kernel == "nn":
         out = (empty((S, N), torch.float32), empty((S, N), torch.int64))
         fn = lib.knn_nn_launch
-        args = (*head, plan.rows, plan.threads, *(o.data_ptr() for o in out), _stream(x))
+        args = (*head, plan.rows, plan.threads, *(o.data_ptr() for o in out), _cuda.stream(x))
     else:
         out = (empty((S, N), torch.float32), empty((S, N), torch.int64),
                empty((S, M), torch.float32), empty((S, M), torch.int64))
         scratch = empty(plan.scratch_bytes // 8, torch.int64)
         if plan.kernel == "nn_bidir":
             fn, block = lib.knn_bidir_launch, (plan.rows, plan.threads)
-            tail = (scratch.data_ptr(), _stream(x))
+            tail = (scratch.data_ptr(), _cuda.stream(x))
         else:
             fn, block = lib.knn_bidir_acc_launch, (plan.rows, plan.cols, plan.threads)
-            tail = (scratch.data_ptr(), _ACC_INIT, _stream(x))
+            tail = (scratch.data_ptr(), _ACC_INIT, _cuda.stream(x))
         args = (*head, *block, *(o.data_ptr() for o in out), *tail)
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:                           # the launch goes to the tensors' device
-        with torch.cuda.device(dev):
-            err = fn(*args)
+    err = _cuda.launch(fn, x, *args)
     _cuda.check(err, f"knn launch of {plan.kernel}")
     launch_counts[plan.kernel] += 1
     return out

@@ -2,15 +2,21 @@
 autourdf_tpu.ops.plane; Open3D ``segment_plane`` / ``estimate_normals``
 replacements).
 
-Plain PyTorch on the tensors' device: neither function reaches a
-hand-written kernel, as neither reached a Pallas kernel in the JAX package.
 RANSAC hypotheses are scored in one batched pass; the draw of the point
 triples is split from the scoring so a caller can supply its own triples.
+Plain PyTorch on the tensors' device, but for the normals' eigenvectors: on
+a CUDA tensor the smallest-eigenvalue eigenvector of every neighbourhood
+covariance comes from one launch of ``sym_eig3_min_kernel``
+(``csrc/geom.cu``), where ``torch.linalg.eigh`` would wait on the host, so
+the normals can sit inside a captured program as they sit inside the JAX
+package's compiled resample.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import _cuda
 
 
 def draw_plane_triples(n: int, num_iterations: int, generator: torch.Generator) -> torch.Tensor:
@@ -53,21 +59,58 @@ def segment_plane(
     return segment_plane_from_triples(points, triples, distance_threshold)
 
 
-def estimate_normals(points: torch.Tensor, k: int = 30, chunk: int = 1024) -> torch.Tensor:
-    """Per-point unit normals ``(N, 3)`` from PCA over the k nearest
-    neighbours: a dense top-k over ``chunk`` query rows at a time, the
-    smallest-eigenvalue eigenvector of each 3x3 neighbourhood covariance,
-    flipped towards the +z hemisphere."""
+def _smallest_eigenvector_plain(cov: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``sym_eig3_min_kernel``: the unit eigenvector of the
+    smallest eigenvalue of each symmetric ``(N, 3, 3)``, ``(N, 3)``."""
+    return torch.linalg.eigh(cov)[1][..., 0]
+
+
+def _smallest_eigenvector_cuda(cov: torch.Tensor) -> torch.Tensor:
+    """Replaces ``jnp.linalg.eigh`` in the JAX module's ``estimate_normals``
+    (autourdf_tpu/ops/plane.py:56).  One thread a matrix, fixed sweeps of
+    cyclic Jacobi rotations (csrc/geom.cu)."""
+    if cov.dtype != torch.float32:
+        raise TypeError(f"sym_eig3_min_kernel takes float32, got {cov.dtype}")
+    cov = cov.contiguous()
+    out = torch.empty(cov.shape[:2], dtype=cov.dtype, device=cov.device)
+    lib = _cuda.library("geom")
+    err = _cuda.launch(lib.geom_sym_eig3_min_launch, cov, cov.data_ptr(), out.data_ptr(),
+                       cov.shape[0], _cuda.stream(cov))
+    _cuda.check(err, "sym_eig3_min_kernel launch")
+    _cuda.launch_counts["sym_eig3_min"] += 1
+    return out
+
+
+def smallest_eigenvector(cov: torch.Tensor) -> torch.Tensor:
+    """The unit eigenvector of the smallest eigenvalue of each symmetric
+    ``cov (N, 3, 3)`` (its sign is the solver's): the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if cov.dim() != 3 or cov.shape[1:] != (3, 3) or cov.shape[0] == 0:
+        raise ValueError(f"expected cov (N >= 1, 3, 3), got {tuple(cov.shape)}")
+    if cov.is_cuda:
+        return _smallest_eigenvector_cuda(cov)
+    if cov.device.type != "cpu":
+        raise ValueError(f"unsupported device {cov.device}")
+    return _smallest_eigenvector_plain(cov)
+
+
+def neighbourhood_covariances(points: torch.Tensor, k: int = 30,
+                              chunk: int = 1024) -> torch.Tensor:
+    """``(N, 3, 3)`` covariances (unnormalised) of each point's k nearest
+    neighbours, itself included: a dense top-k over ``chunk`` query rows at
+    a time."""
     idx = []
     for a in range(0, points.shape[0], chunk):
         d = torch.sum((points[a:a + chunk, None, :] - points[None, :, :]) ** 2, dim=-1)
         idx.append(torch.topk(d, k, dim=1, largest=False).indices)
     neigh = points[torch.cat(idx)]                                  # (N, k, 3)
     centered = neigh - torch.mean(neigh, dim=1, keepdim=True)
-    cov = torch.einsum("nki,nkj->nij", centered, centered)
-    # torch.linalg.eigh waits on the host on CUDA (PyTorch reads the solver's
-    # error codes back), so the normals and the --normal resample stay
-    # outside the captured programs
-    _, vecs = torch.linalg.eigh(cov)
-    normals = vecs[..., 0]
+    return torch.einsum("nki,nkj->nij", centered, centered)
+
+
+def estimate_normals(points: torch.Tensor, k: int = 30, chunk: int = 1024) -> torch.Tensor:
+    """Per-point unit normals ``(N, 3)`` from PCA over the k nearest
+    neighbours: the smallest-eigenvalue eigenvector of each 3x3
+    neighbourhood covariance, flipped towards the +z hemisphere."""
+    normals = smallest_eigenvector(neighbourhood_covariances(points, k, chunk))
     return torch.where(normals[:, 2:3] < 0, -normals, normals)

@@ -23,12 +23,11 @@ CPU):
   replays it once per frame pair, the counterpart of its ``lax.scan``;
 - :func:`register_sequence` is the fused driver at ``S = 1``.
 
-What waits on the host stays outside the programs and runs eagerly between
-them: the ``mlp_icp`` ICP phase (``torch.linalg.svd`` in ``ops/icp.py``) and
-the ``use_normals`` resample (``torch.linalg.eigh`` in ``ops/plane.py``)
-synchronise with the host on CUDA.  ``register_sequences_batched(...,
-eager=True)`` runs the plain loops, the reference the programs are held
-against.
+Every phase of every configuration is in a program: the ``mlp_icp`` ICP
+phase takes its rotations from ``kabsch3_kernel`` and the ``use_normals``
+resample its normals from ``sym_eig3_min_kernel`` (``csrc/geom.cu``), so
+neither waits on the host.  ``register_sequences_batched(..., eager=True)``
+runs the plain loops, the reference the programs are held against.
 """
 
 from __future__ import annotations
@@ -102,12 +101,24 @@ def _train(model, cfg: RegistrationConfig, theta, matrices, target, points, labe
                           dispatch_epochs=cfg.dispatch_epochs, eager=eager)
 
 
-def _icp(cfg: RegistrationConfig, points, labels, matrices, target):
+def _icp(cfg: RegistrationConfig, points, labels, matrices, target, eager: bool):
     """The MLP+ICP variant's refinement: AABB-masked p2p ICP of each cluster
-    pose instead of the anchor MLP, all S * K clusters as one batch; eager
-    (its SVD waits on the host on CUDA)."""
+    pose instead of the anchor MLP, all S * K clusters as one batch."""
     return masked_icp_clusters(points, labels, matrices, target, num_clusters=cfg.num_seg,
-                               scale=cfg.icp_box_scale, max_iterations=cfg.icp_iterations)
+                               scale=cfg.icp_box_scale, max_iterations=cfg.icp_iterations,
+                               eager=eager)
+
+
+def _icp_phase(cfg: RegistrationConfig, points, labels, matrices, target, eager: bool):
+    """:func:`_icp` as a program (the JAX driver's ``icp_phase``), or eagerly
+    for the plain loop; the first capture warms up on one ICP iteration."""
+    if eager:
+        return _icp(cfg, points, labels, matrices, target, eager=True)
+    one = cfg._replace(icp_iterations=1)
+    return programs.clone(programs.run(
+        ("icp_phase", cfg.num_seg, cfg.icp_box_scale, cfg.icp_iterations),
+        lambda *a: _icp(cfg, *a, eager=True), points, labels, matrices, target,
+        warm=lambda *a: _icp(one, *a, eager=True)))
 
 
 def _resample(cfg: RegistrationConfig, new_m, target, target_mask):
@@ -125,13 +136,13 @@ def _resample(cfg: RegistrationConfig, new_m, target, target_mask):
 
 
 def _resample_phase(cfg: RegistrationConfig, new_m, target, target_mask, eager: bool):
-    """:func:`_resample` as a program, or eagerly for the plain loop and for
-    the normals (their ``eigh`` waits on the host on CUDA)."""
-    if eager or cfg.use_normals:
+    """:func:`_resample` as a program (the JAX driver's ``resample_phase``),
+    or eagerly for the plain loop."""
+    if eager:
         return _resample(cfg, new_m, target, target_mask)
     return programs.clone(programs.run(
-        ("resample", cfg.kmeans_iters), lambda m, t, tm: _resample(cfg, m, t, tm),
-        new_m, target, target_mask))
+        ("resample", cfg.kmeans_iters, cfg.use_normals),
+        lambda m, t, tm: _resample(cfg, m, t, tm), new_m, target, target_mask))
 
 
 def _result(out_m, out_p, out_l, out_loss, out_step_loss) -> SequenceResult:
@@ -178,7 +189,7 @@ def register_sequences_batched(
                           target_mask, points_mask, cfg.lr_step, eager)
         step_theta = step_res.params
         if cfg.mlp_icp:
-            new_m = _icp(cfg, points, labels, step_res.best_matrices, target)
+            new_m = _icp_phase(cfg, points, labels, step_res.best_matrices, target, eager)
             loss = step_res.best_loss
         else:
             anchor_res = _train(model, cfg, anchor_theta, step_res.best_matrices, target,
@@ -198,28 +209,24 @@ def register_sequences_batched(
     return _result(out_m, out_p, out_l, out_loss, out_step_loss)
 
 
-def _pair_train(model, cfg: RegistrationConfig, state, anchor, target, target_mask):
-    """The training phases of a frame pair (the step phase and, unless
-    ``mlp_icp``, the anchor phase), plain loops for capture as one program:
-    ``(step theta, anchor theta, poses, loss, step loss)``."""
+def _frame_pair(model, cfg: RegistrationConfig, state, anchor, target, target_mask):
+    """The whole frame-pair body (``_frame_step`` of the JAX module: the step
+    phase, then the anchor phase or, with ``mlp_icp``, the ICP, then the
+    resample), plain loops for capture as one program: the next state and
+    the pair's ``(loss, step loss)``."""
     step_theta, anchor_theta, matrices, points, labels, points_mask = state
     step = _train(model, cfg, step_theta, matrices, target, points, labels, target_mask,
                   points_mask, cfg.lr_step)
     if cfg.mlp_icp:
-        return step.params, anchor_theta, step.best_matrices, step.best_loss, step.best_loss
-    anchor_points, anchor_labels, anchor_mask = anchor
-    res = _train(model, cfg, anchor_theta, step.best_matrices, target, anchor_points,
-                 anchor_labels, target_mask, anchor_mask, cfg.lr_anchor)
-    return step.params, res.params, res.best_matrices, res.best_loss, step.best_loss
-
-
-def _frame_pair(model, cfg: RegistrationConfig, state, anchor, target, target_mask):
-    """The whole frame-pair body (``_frame_step`` of the JAX module): the
-    next state and the pair's ``(loss, step loss)``."""
-    step_theta, anchor_theta, new_m, loss, step_loss = _pair_train(
-        model, cfg, state, anchor, target, target_mask)
+        new_m = _icp(cfg, points, labels, step.best_matrices, target, eager=True)
+        loss = step.best_loss
+    else:
+        anchor_points, anchor_labels, anchor_mask = anchor
+        res = _train(model, cfg, anchor_theta, step.best_matrices, target, anchor_points,
+                     anchor_labels, target_mask, anchor_mask, cfg.lr_anchor)
+        anchor_theta, new_m, loss = res.params, res.best_matrices, res.best_loss
     points, labels = _resample(cfg, new_m, target, target_mask)
-    return (step_theta, anchor_theta, new_m, points, labels, target_mask), loss, step_loss
+    return (step.params, anchor_theta, new_m, points, labels, target_mask), loss, step.best_loss
 
 
 def register_sequences_fused(
@@ -233,40 +240,26 @@ def register_sequences_fused(
 ) -> SequenceResult:
     """All sequences and frames with the frame-pair body as ONE program,
     replayed once per frame pair with the next frame and mask copied into
-    its static target buffers (the JAX ``lax.scan``).  The same arguments and
+    its static target buffers (the JAX ``lax.scan``), in every configuration
+    (``mlp_icp`` and ``use_normals`` included).  The same arguments and
     result as :func:`register_sequences_batched`.
-
-    A body with a phase that waits on the host is cut there: with
-    ``mlp_icp`` the step phase is one program, the ICP runs eagerly and the
-    resample is a second program; with ``use_normals`` the training phases
-    are one program and the resample runs eagerly.
     """
     T = frames.shape[1]
     state = _start(model, init, step_params_batch, anchor_params_batch, frames, masks)
     anchor = state[3:]
     key = (model.mode, model.hidden_dim, cfg)
-    whole = not (cfg.mlp_icp or cfg.use_normals)
-    short = cfg._replace(epochs=max(1, cfg.corr_every))   # the warm-up's: one round
+    # the warm-up's: one round of epochs, one ICP iteration
+    short = cfg._replace(epochs=max(1, cfg.corr_every), icp_iterations=1)
 
     out_m, out_p, out_l = [state[2]], [state[3]], [state[4]]
     out_loss, out_step_loss = [], []
     for i in range(T - 1):
         target = frames[:, i + 1]
         target_mask = masks[:, i + 1] if masks is not None else None
-        if whole:
-            state, loss, step_loss = programs.run(
-                ("frame_pair", *key), lambda *a: _frame_pair(model, cfg, *a),
-                state, anchor, target, target_mask,
-                warm=lambda *a: _frame_pair(model, short, *a))
-        else:
-            step_theta, anchor_theta, new_m, loss, step_loss = programs.run(
-                ("pair_train", *key), lambda *a: _pair_train(model, cfg, *a),
-                state, anchor, target, target_mask,
-                warm=lambda *a: _pair_train(model, short, *a))
-            if cfg.mlp_icp:
-                new_m = _icp(cfg, state[3], state[4], new_m, target)
-            points, labels = _resample_phase(cfg, new_m, target, target_mask, eager=False)
-            state = (step_theta, anchor_theta, new_m, points, labels, target_mask)
+        state, loss, step_loss = programs.run(
+            ("frame_pair", *key), lambda *a: _frame_pair(model, cfg, *a),
+            state, anchor, target, target_mask,
+            warm=lambda *a: _frame_pair(model, short, *a))
         out_m.append(state[2].clone())
         out_p.append(state[3].clone())
         out_l.append(state[4].clone())

@@ -100,7 +100,8 @@ def visible_mask(
 ) -> torch.Tensor:
     """``(C, P)`` visibility of ``points (P, 3)`` in every camera of ``rig``."""
     dev = points.device
-    f = torch.tensor(focal_length(rig.fov_deg), dtype=torch.float32, device=dev)
+    # filled on the device (no copy from the host: the capture can be captured)
+    f = torch.full((), focal_length(rig.fov_deg), dtype=torch.float32, device=dev)
     rot, t = _look_at(rig.eyes, rig.targets, rig.ups)
     cam = points[None] @ rot.transpose(-1, -2) + t[:, None, :]   # (C, P, 3), looks down -z
     depth = -cam[..., 2]
@@ -150,8 +151,8 @@ def capture_cloud(
     Visibility union over cameras, optional global pose noise (sigma
     ``pose_noise``, the reference's scanning drift, sim_data.py:337) and
     per-point noise drawn from ``generator``, then farthest-point
-    downsampling of the visible set on the device (one read of the visible
-    count from the device a capture).
+    downsampling of the visible set: on the card one kernel launch that reads
+    nothing back, on the CPU the plain loop over the visible points.
     """
     visible = torch.any(visible_mask(points_world, rig, width, height, depth_eps, dilation),
                         dim=0)
@@ -163,9 +164,13 @@ def capture_cloud(
     if point_noise > 0:
         noisy = noisy + torch.randn(points_world.shape, generator=generator,
                                     device=noisy.device) * point_noise
-    # FPS over the visible points only: the same picks as the masked FPS over
-    # all of them (masked points never win, and the first index among equal
-    # scores keeps its order), in a fraction of the work a step
+    if noisy.is_cuda:
+        # one launch of fps_kernel under the visibility mask: the kernel
+        # compacts the visible points itself, and nothing is read back
+        return noisy[farthest_point_sample(noisy, num_points, mask=visible)], visible
+    # on the CPU, FPS over the visible points only: the same picks as the
+    # masked FPS over all of them (masked points never win, and the first
+    # index among equal scores keeps its order), in a fraction of the work
     vis_idx = torch.nonzero(visible)[:, 0]
     if len(vis_idx) == 0:
         idx = farthest_point_sample(noisy, num_points, mask=visible)

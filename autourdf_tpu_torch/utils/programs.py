@@ -22,11 +22,15 @@ inputs never share memory.
 
 A capture that fails raises; nothing falls back to running the function
 eagerly on the card.  A function whose body waits on the host (``.item()``,
-``float(t)``, a pageable copy, ``torch.linalg.svd`` or ``eigh`` on CUDA) cannot
-be a program.
+``float(t)``, a pageable copy, ``torch.nonzero``, ``torch.linalg.svd`` or
+``eigh`` on CUDA) cannot be a program: the port's ICP, normals and
+farthest-point pick go through their kernels (``csrc/geom.cu``) instead.
+A program's body does not call another program: the functions that run as
+programs by themselves (``ops/icp.py icp_point_to_point``) take
+``eager=True`` inside another program's body.
 
 Kernel launches: the kernels' wrappers count a launch on the host
-(``ops/knn.py launch_counts``), which a replay does not pass through.  The
+(``ops/_cuda.py launch_counts``), which a replay does not pass through.  The
 program records the counts its capture added and adds them again at every
 replay; the warm-up's and the capture's own launches are taken back out, so
 a run counts each launch once per call, as the eager loop does.
@@ -41,7 +45,7 @@ from collections import OrderedDict
 
 import torch
 
-from ..ops import knn
+from ..ops import _cuda
 
 # Programs kept alive (each holds its graph and its memory pool), as the JAX
 # package's ``_batched_phases`` keeps ``lru_cache(maxsize=16)`` of them.
@@ -148,7 +152,7 @@ class Program:
         if self._graph is not None:
             self._graph.replay()
             for k, n in self._delta.items():
-                knn.launch_counts[k] += n
+                _cuda.launch_counts[k] += n
         else:
             self._run_plain()
         return _unflatten(self._out_spec, iter(self._outputs))
@@ -168,7 +172,7 @@ class Program:
                 buf.copy_(t.detach())
 
     def _capture(self, dev: torch.device) -> None:
-        counts = dict(knn.launch_counts)
+        counts = dict(_cuda.launch_counts)
         try:
             self._warm_up_and_capture(dev)
         except BaseException:
@@ -177,7 +181,7 @@ class Program:
             self._inputs = self._outputs = self._graph = None
             raise
         finally:
-            knn.launch_counts.update(counts)
+            _cuda.launch_counts.update(counts)
         captures.append(self.stats)
 
     def _warm_up_and_capture(self, dev: torch.device) -> None:
@@ -190,7 +194,7 @@ class Program:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             _warmed.add((self.family, dev))
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         reserved = torch.cuda.memory_reserved(dev)
         # kept for instantiation by hand: capture and instantiation are timed apart
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -219,7 +223,7 @@ class Program:
         graph.instantiate()
         torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        self._delta = {k: knn.launch_counts[k] - before[k] for k in knn.launch_counts}
+        self._delta = {k: _cuda.launch_counts[k] - before[k] for k in _cuda.launch_counts}
         self._graph = graph
         self.stats = dict(name=self.name, capture_s=t1 - t0, instantiate_s=t2 - t1, nodes=nodes,
                           pool_bytes=torch.cuda.memory_reserved(dev) - reserved,

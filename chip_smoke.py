@@ -6,9 +6,10 @@
 Phases, each of which fails the run on error:
 
 1. print the device and ``nvidia-smi``'s name and power limit;
-2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (nvcc, sm_90a);
-   print ptxas' registers (a spill fails the run) and the SASS instruction
-   counts of the four search kernels' inner loops;
+2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (one nvcc a
+   source, ``knn.cu`` and ``geom.cu`` started together; sm_90a); print
+   ptxas' registers (a spill fails the run) and the SASS instruction counts
+   of the four search kernels' inner loops;
 3. hold every kernel against its plain PyTorch version on the card (exact
    distances and indices) at the production shape with masked rows and
    forced ties, at a ragged shape and at the main path's shape, the
@@ -29,7 +30,19 @@ Phases, each of which fails the run on error:
    and device time (the dispatch rule of ops/knn.py), the one-directional
    kernel also at the carry test's and at a link-ICP shape, and the
    one-directional (squared L2) and min-only (L1) kernels at the evaluation's
-   re-simulation shape, S=1, N=M=10,000;
+   re-simulation shape, S=1, N=M=10,000; then the three geometry kernels of
+   ``csrc/geom.cu`` against their plain versions: ``fps_kernel`` (identical
+   picks at a capture's real visible set of [11]'s robot, masked and
+   compacted, k = 5,000; at 10,000 of 10,000 points; on 100,000 points with
+   a duplicated block and a mask; with fewer valid points than k and with
+   none), ``kabsch3_kernel`` (B = 100, 5, 18, 1: 1e-5 on well-conditioned
+   and reflected H, exactly I at H = 0, proper rotations at rank 1 and 2)
+   and ``sym_eig3_min_kernel`` (30-neighbour covariances of one real frame
+   and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest
+   eigenvalues are 10% apart, unit norm to 1e-6), each timed beside its
+   bound, its plain version and its library call (``svd`` + ``det``,
+   ``eigh``; none for the farthest-point pick).  After [3] no path may call
+   ``torch.linalg.svd``, ``det`` or ``eigh`` on a CUDA tensor;
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
@@ -40,8 +53,10 @@ Phases, each of which fails the run on error:
    with ``unknown_dof=True, dof_probe=False``; check the URDF, its meshes
    and that the searches went through the one-directional kernel;
 7. ``run_registration(mlp_icp=True, use_normals=True)`` with FPS seeds on the
-   first 2 sequences x 4 frames of the same scans; check the ICP's launches
-   and the loss;
+   first 2 sequences x 4 frames of the same scans, its ICP phase and normals
+   resample as programs; check the launches of the ICP's search and Kabsch
+   kernels, of the eigenvector kernel and of the farthest-point pick, the
+   captures and the loss;
 8. the large-cloud path: one sequence of 3 frames of a synthetic 3-link
    hinged chain at 20,000 points per frame through ``run_registration``;
    check that every search took the accumulator kernel, and the loss;
@@ -62,8 +77,9 @@ Phases, each of which fails the run on error:
     points), register them, build the URDF with the unknown DoF and the
     defaults, score it (joint errors, re-simulation Chamfer at 3
     configurations, the gt-vs-gt floor); check every stage's output, the
-    telemetry and that all four kernels were launched; time each stage, one
-    capture and its farthest-point pick, and the native meshing against the
+    telemetry and that the four search kernels, the farthest-point pick and
+    the Kabsch kernel were launched; time each stage, one capture and its
+    farthest-point pick (one launch), and the native meshing against the
     numpy extractor (the native host library must build);
 12. the parallel layer with several ranks on the one card
     (``parallel.launch.run``, gloo with CUDA tensors), each rank's result
@@ -96,12 +112,14 @@ Phases, each of which fails the run on error:
     tolerance, poses within ``SAME_DRAW_POSE_ATOL``, the same labels).
 
 15. the device programs (``autourdf_tpu_torch/utils/programs.py``, CUDA
-    graphs) against the eager loops: phase 4c's subset through the eager
-    loop, the batched driver's phase programs and the fused frame-pair
-    program, and phase 9b's chain fit for 120 steps eager and in 50-step
-    programs; every output must be equal bit for bit and every program's
-    capture and instantiation seconds, graph nodes and pool bytes are
-    printed.
+    graphs) against the eager loops: phase 4c's subset, and the same with
+    phase 7's options, through the eager loop, the batched driver's phase
+    programs and the fused frame-pair program; phase 9b's chain fit for 120
+    steps eager and in 50-step programs; the first link ICP of [6], polish
+    ICP of [10] and resim ICP of [11] on their own arguments, eager, in a
+    fresh program and replayed (wall ms of each); every output must be equal
+    bit for bit and every program's capture and instantiation seconds, graph
+    nodes and pool bytes are printed.
 
 The main path of phases 4, 4c, 9, 11 and 14 runs the programs (phase 4
 prints its captures).  Phase 4b times a training epoch and phase 9b a
@@ -121,6 +139,7 @@ repository around it.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import importlib
 import json
@@ -152,8 +171,8 @@ UNFUSED_FP32_OPS = PEAK_FP32_FLOPS / 2
 # order move the last bits.
 CHAMFER_RTOL, GRAD_ATOL = 1e-5, 1e-7
 EPOCHS, PAIRS = 300, 9
-# one ICP step, card vs CPU: the same correspondences; the batched 3x3 SVD
-# and the weighted sums differ in the last bits
+# one ICP step, card vs CPU: the same correspondences; the Kabsch kernel's
+# Jacobi SVD against LAPACK's, and the weighted sums, differ in the last bits
 ICP_STEP_ATOL = 1e-5
 ICP_ITERATIONS = 30
 LARGE_N = 20000
@@ -173,7 +192,19 @@ RESIM_SHAPE = (1, 10000, 10000)
 # captured in
 WX200_ESTIMATE = os.path.join("data_ab5", "urdf", "wx200_5_20_seg", "4_deg_20_cams.urdf")
 CLOSED_LOOP_SEQS, CLOSED_LOOP_FRAMES, CLOSED_LOOP_POINTS = 5, 10, 5000
+# fp32 operations of the geometry kernels (csrc/geom.cu), for their bounds:
+# a farthest-point step a valid point (3 subtracts, 3 multiplies, 2 adds, the
+# minimum, the key's compare); a Kabsch matrix (18 one-sided Jacobi steps of
+# 64: the pair's Gram entries 15, the rotation 13, two columns of B and V
+# rotated 36; the column order 30, the Givens QR 126, R = V U^T 45); an
+# eigenvector (18 two-sided steps of 42, the normalisation 12)
+FPS_OPS_PER_POINT = 10
+KABSCH_OPS_PER_MATRIX = 18 * 64 + 30 + 126 + 45
+EIG_OPS_PER_MATRIX = 18 * 42 + 12
 
+
+# the kernel sources of autourdf_tpu_torch/csrc that phase 2 builds
+CUDA_SOURCES = ("knn", "geom")
 
 # the kernels whose inner loops phase 2 counts (mangled-name fragments): the
 # L1 indexed sweeps, the one-directional search at squared L2 and the
@@ -903,6 +934,190 @@ def _check_fps_and_icp(dev) -> None:
         _fail("fps or ICP on the card disagrees with the CPU path")
 
 
+def _cross_covariances(B: int, seed: int) -> tuple[torch.Tensor, np.ndarray]:
+    """``(B, 3, 3)`` float32 matrices, by ``kind``: 0 well-conditioned
+    (sigma_2 - sigma_3 > 1e-3 sigma_1), 1 the same reflected (det < 0), 2
+    rank 2, 3 rank 1, 4 zero; with B = 1 a well-conditioned one."""
+    rng = np.random.default_rng(seed)
+
+    def rotations():
+        q = rng.normal(size=(B, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        w, x, y, z = q.T
+        return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                        axis=1).reshape(B, 3, 3)
+
+    sv = np.sort(rng.uniform(0.2, 3.0, (B, 3)), axis=1)[:, ::-1].copy()
+    sv[:, 2] = np.minimum(sv[:, 2], sv[:, 1] - 0.01 * sv[:, 0])
+    kind = np.arange(B) % 5
+    sv[kind == 1, 2] *= -1
+    sv[kind == 2, 2] = 0.0
+    sv[kind == 3, 1:] = 0.0
+    sv[kind == 4] = 0.0
+    H = np.einsum("bij,bj,bkj->bik", rotations(), sv, rotations()).astype(np.float32)
+    return torch.from_numpy(H), kind
+
+
+def _separated(C: torch.Tensor) -> torch.Tensor:
+    """Covariances whose two smallest eigenvalues are more than 10% apart
+    (and apart by more than the fp32 round-off of the matrix, 1e-4 of its
+    largest eigenvalue), from float64 eigenvalues on the CPU."""
+    e = torch.linalg.eigvalsh(C.detach().cpu().double())
+    gap = e[:, 1] - e[:, 0]
+    return (gap > 0.1 * e[:, 1]) & (gap > 1e-4 * e[:, 2])
+
+
+def check_geom_kernels(dev, frame: np.ndarray) -> dict:
+    """Phase 3 for csrc/geom.cu: farthest-point sampling (identical picks),
+    the Kabsch rotation (1e-5 on well-conditioned H, exactly I at H = 0,
+    proper rotations at rank 1 and 2 and for reflections) and the smallest
+    eigenvector (|dot| > 1 - 1e-4 where separated, unit norm to 1e-6)
+    against their plain versions on the card, then their times at the main
+    path's shapes.  ``frame`` is one real scan (its valid points)."""
+    from autourdf_tpu_torch.ops import fps, icp, plane
+    from autourdf_tpu_torch.sim import KinematicEnv
+    from autourdf_tpu_torch.sim.capture import visible_mask
+
+    # -- fps_kernel: identical picks
+    env = KinematicEnv.create(os.path.join(REPO, WX200_ESTIMATE), dof=5, radius=1.5,
+                              num_cameras=20, camera_rng=np.random.default_rng(0), device=dev)
+    env.set_joint_positions(np.array([0.3, -0.2, 0.4, 0.1, -0.3]))
+    surface = torch.from_numpy(env.posed_surface_points()).to(dev)
+    vis = visible_mask(surface, env.rig, 800, 800).any(0)
+    vis_idx = torch.nonzero(vis)[:, 0]
+    rng = np.random.default_rng(12)
+    uniform = torch.from_numpy(rng.uniform(-0.3, 0.3, (100000, 3)).astype(np.float32)).to(dev)
+    uniform[50000:52000] = uniform[:2000]                  # a duplicated block: equal scores
+    half = torch.from_numpy(rng.random(100000) > 0.5).to(dev)
+    few = torch.zeros(100000, dtype=torch.bool, device=dev)
+    few[[11, 4000, 4001, 70000, 99999]] = True
+    cases = [
+        ("capture's visible set, masked", surface, CLOSED_LOOP_POINTS, vis,
+         lambda: vis_idx[fps._fps_plain(surface[vis_idx], CLOSED_LOOP_POINTS)]),
+        ("capture's visible set, compacted", surface[vis_idx], CLOSED_LOOP_POINTS, None, None),
+        ("resim, 10,000 of 10,000", uniform[:10000], 10000, None, None),
+        ("100,000 uniform, duplicates, mask", uniform, 1000, half, None),
+        ("fewer valid than k", uniform, 50, few, None),
+        ("no valid point", uniform, 20, torch.zeros_like(few), None),
+    ]
+    for label, pts, k, mask, plain in cases:
+        got = fps.farthest_point_sample(pts, k, mask)
+        ref = plain() if plain is not None else fps._fps_plain(pts, k, mask)
+        same = torch.equal(got, ref)
+        print(f"  fps          {label}: N={pts.shape[0]}, valid "
+              f"{pts.shape[0] if mask is None else int(mask.sum())}, k={k}: picks equal {same}")
+        if not same:
+            _fail(f"fps_kernel disagrees with its plain version ({label})")
+
+    # -- kabsch3_kernel
+    kabsch_err = 0.0
+    for B in (100, 5, 18, 1):
+        H, kind = _cross_covariances(B, 40 + B)
+        H = H.to(dev)
+        R = icp.kabsch_rotation(H)
+        ref = icp._kabsch_rotation_plain(H)
+        good = torch.from_numpy(kind == 0).to(dev)
+        err = float((R - ref).abs()[good].max())
+        flip = torch.from_numpy(kind == 1).to(dev)
+        err_flip = float((R - ref).abs()[flip].max()) if bool(flip.any()) else 0.0
+        zero = torch.from_numpy(kind == 4).to(dev)
+        ident = torch.equal(R[zero], torch.eye(3, device=dev).expand(int(zero.sum()), 3, 3))
+        Rd = R.double()
+        orth = float((Rd @ Rd.transpose(-1, -2) - torch.eye(3, device=dev, dtype=torch.float64))
+                     .abs().max())
+        det = float((torch.linalg.det(Rd) - 1).abs().max())
+        kabsch_err = max(kabsch_err, err)
+        print(f"  kabsch3      B={B}: max |R - plain| {err:.3g} (tol 1e-5) on the well-conditioned "
+              f"H, {err_flip:.3g} on the reflected (held to be rotations); H = 0 gives I exactly "
+              f"{ident}; all: max |R R^T - I| {orth:.3g}, max |det R - 1| {det:.3g} (tol 1e-6)")
+        if not (err <= 1e-5 and ident and orth <= 1e-6 and det <= 1e-6):
+            _fail(f"kabsch3_kernel disagrees with its plain version (B={B})")
+
+    # -- sym_eig3_min_kernel
+    eig_err = 0.0
+    chain = torch.from_numpy(articulated_chain_frames(1, LARGE_N)[0]).to(dev)
+    for label, pts in (("one real frame", torch.from_numpy(frame).to(dev)),
+                       ("20,000-point chain", chain)):
+        C = plane.neighbourhood_covariances(pts, 30)
+        v = plane.smallest_eigenvector(C)
+        ref = plane._smallest_eigenvector_plain(C)
+        sep = _separated(C).to(dev)
+        dots = (v * ref).sum(1)
+        aligned = torch.where(dots[:, None] < 0, -v, v)
+        err = float((aligned - ref).abs()[sep].max())
+        worst = float(1 - dots.abs()[sep].min())
+        unit = float((v.norm(dim=1) - 1).abs().max())
+        eig_err = max(eig_err, err)
+        print(f"  sym_eig3_min {label}: N={pts.shape[0]}, {int(sep.sum())} separated: 1 - min |dot| "
+              f"{worst:.3g} (tol 1e-4), max |v - plain| (sign aligned) {err:.3g}; max |norm - 1| "
+              f"{unit:.3g} (tol 1e-6)")
+        if not (worst < 1e-4 and unit <= 1e-6):
+            _fail(f"sym_eig3_min_kernel disagrees with its plain version ({label})")
+
+    # -- times at the main path's shapes
+    n_vis = int(vis.sum())
+    H, _ = _cross_covariances(100, 7)
+    H = H.to(dev)
+    C = plane.neighbourhood_covariances(torch.from_numpy(frame).to(dev), 30)
+    N = C.shape[0]
+    P, k = surface.shape[0], CLOSED_LOOP_POINTS
+
+    def bound(ops: float, nbytes: float) -> tuple[float, str]:
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    timing = {
+        "fps": dict(
+            ms=_time_ms(lambda: fps.farthest_point_sample(surface, k, vis), reps=5, warm=1),
+            device_ms=_device_ms(lambda: fps.farthest_point_sample(surface, k, vis), reps=3),
+            plain_ms=_time_ms(lambda: fps._fps_plain(surface, k, vis), reps=2, warm=1),
+            library_ms=None,
+            bound=bound((k - 1) * n_vis * FPS_OPS_PER_POINT, P * (12 + 1) + k * 8),
+            shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=0.0),
+        "kabsch3": dict(
+            ms=_time_ms(lambda: icp.kabsch_rotation(H)),
+            device_ms=_device_ms(lambda: icp.kabsch_rotation(H)),
+            plain_ms=_time_ms(lambda: icp._kabsch_rotation_plain(H)),
+            library_ms=_time_ms(lambda: (torch.linalg.svd(H), torch.linalg.det(H))),
+            bound=bound(100 * KABSCH_OPS_PER_MATRIX, 100 * 2 * 36),
+            shape="B=100", max_abs_err=kabsch_err),
+        "sym_eig3_min": dict(
+            ms=_time_ms(lambda: plane.smallest_eigenvector(C)),
+            device_ms=_device_ms(lambda: plane.smallest_eigenvector(C)),
+            plain_ms=_time_ms(lambda: plane._smallest_eigenvector_plain(C)),
+            library_ms=_time_ms(lambda: torch.linalg.eigh(C)),
+            bound=bound(N * EIG_OPS_PER_MATRIX, N * (36 + 12)),
+            shape=f"N={N}", max_abs_err=eig_err),
+    }
+    for name, t in timing.items():
+        lib = "none (no one PyTorch call)" if t["library_ms"] is None else \
+            f"{t['library_ms']:.4f} ms"
+        print(f"  time {name:12s} {t['shape']}: wrapper {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    return timing
+
+
+def _forbid_cuda_solvers() -> list:
+    """Wrap ``torch.linalg.svd``, ``det`` and ``eigh`` so that a call on a
+    CUDA tensor is recorded (in the returned list) and raises."""
+    calls: list = []
+
+    def guard(name, fn):
+        def call(*a, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in (*a, *kw.values())):
+                calls.append(name)
+                raise RuntimeError(f"torch.linalg.{name} on a CUDA tensor")
+            return fn(*a, **kw)
+        return call
+
+    for name in ("svd", "det", "eigh"):
+        setattr(torch.linalg, name, guard(name, getattr(torch.linalg, name)))
+    return calls
+
+
 def run_main_path(dev, gpu_line: str, root: str) -> dict:
     """Phase 4: the registration path through its public entry point, into
     the data root ``root`` (phase 6 builds the URDF from its artifacts)."""
@@ -973,8 +1188,10 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
 
 @contextlib.contextmanager
 def _launch_shapes(shapes: collections.Counter):
-    """Count the launches of the search kernels inside the block by (kernel,
-    S, N, M, norm)."""
+    """Count the launches of the search kernels made on the host inside the
+    block by (kernel, S, N, M, norm): the eager calls and the warm-ups and
+    captures of programs, not their replays (``knn.launch_counts`` has
+    those)."""
     from autourdf_tpu_torch.ops import knn
 
     launch = knn._launch_sweep
@@ -1029,7 +1246,8 @@ def run_urdf_stage(dev, cfg) -> dict:
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
         launched = knn.launch_counts["nn"] - before
-        print(f"  {label}: launches by (kernel, S, N, M, norm): {dict(shapes.most_common())}")
+        print(f"  {label}: host launches (programs' warm-ups and captures, not their replays) "
+              f"by (kernel, S, N, M, norm): {dict(shapes.most_common())}")
         axes = _check_urdf(out, label)
         print(f"  {label}: {out['num_links']} links, dof {out['dof']}, {len(axes)} joints, "
               f"{seconds:.3f} s, nn launches {launched}")
@@ -1054,10 +1272,12 @@ def _raw_chamfer(dev, frames, masks) -> float:
 
 def run_icp_path(dev, root: str) -> dict:
     """Phase 7 (Path A): register --mlp_icp --normal --seed-mode fps on the
-    first 2 sequences x 4 frames of the real scans, at full width."""
+    first 2 sequences x 4 frames of the real scans, at full width; the ICP
+    phase and the normals resample run as programs."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.utils import programs
 
     S, T = 2, 4
     _real_scan_subset(root, S, T)
@@ -1066,6 +1286,7 @@ def run_icp_path(dev, root: str) -> dict:
     _, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), S)
     raw_mean = _raw_chamfer(dev, frames, masks)
     knn.reset_launch_counts()
+    made = len(programs.captures)
     stats = workflow.run_registration(cfg, seed=0, mlp_icp=True, use_normals=True, device=dev)
     torch.cuda.synchronize(dev)
     counts = dict(knn.launch_counts)
@@ -1075,11 +1296,20 @@ def run_icp_path(dev, root: str) -> dict:
           f"{stats['seconds']:.3f} s; mean raw Chamfer {raw_mean:.6f}, mean loss "
           f"{stats['mean_loss']:.6f}")
     print(f"  launches: {counts} (ICP: {T - 1} pairs x {ICP_ITERATIONS} iterations, one launch "
-          f"for the whole batch of {S} x {cfg.num_segments()} clusters)")
+          f"of nn and one of kabsch3 for the whole batch of {S} x {cfg.num_segments()} "
+          f"clusters; normals: the segmentation's frame, then each pair's {S} targets; FPS "
+          f"seeds: one pick); the registration's programs:")
+    _print_captures(programs.captures[made:])
     if frames.shape[:2] != (S, T):
         _fail(f"expected {S} sequences x {T} frames, got {frames.shape[:2]}")
-    if counts["nn"] != (T - 1) * ICP_ITERATIONS:
-        _fail(f"nn launched {counts['nn']} times, expected {(T - 1) * ICP_ITERATIONS}")
+    expected = {"nn": (T - 1) * ICP_ITERATIONS, "kabsch3": (T - 1) * ICP_ITERATIONS,
+                "sym_eig3_min": 1 + (T - 1) * S, "fps": 1}
+    for k, n in expected.items():
+        if counts[k] != n:
+            _fail(f"{k} launched {counts[k]} times, expected {n}")
+    if not any(r["name"] == "icp_phase" for r in programs.captures[made:]) or \
+            not any(r["name"] == "resample" for r in programs.captures[made:]):
+        _fail("the ICP phase and the normals resample did not run as programs")
     if counts["nn_bidir"] != (T - 1) * EPOCHS:
         _fail(f"nn_bidir launched {counts['nn_bidir']} times, expected {(T - 1) * EPOCHS}")
     if not (torch.isfinite(result.matrices).all() and stats["mean_loss"] < raw_mean):
@@ -1310,7 +1540,8 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
         print(f"    last pass: freeze deltas {np.round(last['freeze'], 4).tolist()}, "
               f"subtree shares {np.round(last['share'], 4).tolist()}, normalised "
               f"{np.round(last['freeze'] / np.maximum(last['share'], 1e-6), 3).tolist()}")
-        print(f"    launches by (kernel, S, N, M, norm): {dict(shapes.most_common(12))}"
+        print(f"    host launches (programs' warm-ups and captures, not their replays) by "
+              f"(kernel, S, N, M, norm): {dict(shapes.most_common(12))}"
               + (f" and {len(shapes) - 12} more shapes" if len(shapes) > 12 else ""))
         if not vetoes or not all(f["last"] < f["first"] for f in vetoes):
             _fail(f"a chain fit did not lower its loss ({label})")
@@ -1507,7 +1738,9 @@ def time_capture(dev, gt: str) -> None:
     """One capture of the closed loop's dataset (20 cameras at 800 x 800 px,
     200,000 surface points, 5,000 picked, the noise on) and one of its
     evaluation (400 x 400 px, 10,000 picked), each with the share of its
-    farthest-point pick; medians of 3 after a warm-up."""
+    farthest-point pick (one launch of fps_kernel under the visibility mask,
+    as the capture makes it); medians of 3 after a warm-up."""
+    from autourdf_tpu_torch.ops import knn
     from autourdf_tpu_torch.ops.fps import farthest_point_sample
     from autourdf_tpu_torch.sim import KinematicEnv
     from autourdf_tpu_torch.sim.capture import visible_mask
@@ -1533,13 +1766,15 @@ def time_capture(dev, gt: str) -> None:
         whole = wall(lambda: env.capture(gen, num_points=k, width=pix, height=pix,
                                          pose_noise=noise[0], point_noise=noise[1]))
         vis = visible_mask(pts, env.rig, pix, pix).any(0)
-        sub = pts[vis]
-        fps = wall(lambda: farthest_point_sample(sub, k))
+        before = knn.launch_counts["fps"]
+        fps = wall(lambda: farthest_point_sample(pts, k, vis))
+        launches = (knn.launch_counts["fps"] - before) // 4
         splat = wall(lambda: visible_mask(pts, env.rig, pix, pix))
         print(f"  one capture, 20 cameras at {pix} x {pix} px, {len(pts)} surface points "
               f"({int(vis.sum())} visible), {k} picked: {1e3 * whole:.3f} ms wall; projection, "
               f"splat and visibility {1e3 * splat:.3f} ms; farthest-point pick {1e3 * fps:.3f} ms "
-              f"({fps / whole:.3f} of the capture, {1e3 * fps / k:.4f} ms a step)")
+              f"in {launches} launch of fps_kernel ({fps / whole:.3f} of the capture, "
+              f"{1e3 * fps / k:.4f} ms a step)")
 
 
 def time_native_meshing() -> None:
@@ -1659,9 +1894,14 @@ def run_closed_loop(dev, root: str) -> dict:
     if [r["stage"] for r in records] != ["dataset", "register", "build_urdf", "evaluate"]:
         _fail(f"telemetry records {[r['stage'] for r in records]}")
     print(f"  launches: {counts}")
-    for k in ("nn_bidir", "nn_bidir_acc", "nn_min_bidir", "nn"):
+    for k in ("nn_bidir", "nn_bidir_acc", "nn_min_bidir", "nn", "fps", "kabsch3"):
         if counts[k] < 1:
             _fail(f"the closed loop did not launch {k}")
+    # a capture a frame of each sequence kept or tried, the evaluation's two a
+    # configuration and the floor's
+    if counts["fps"] < CLOSED_LOOP_SEQS * CLOSED_LOOP_FRAMES:
+        _fail(f"fps_kernel launched {counts['fps']} times for "
+              f"{CLOSED_LOOP_SEQS * CLOSED_LOOP_FRAMES} captured frames")
     time_capture(dev, gt)
     time_native_meshing()
     return {"counts": counts, "seconds": wall, "frames": frames, "root": root,
@@ -2014,8 +2254,9 @@ def run_parallel(dev, loop: dict) -> dict:
     for r in two + four:
         counts.update(r["counts"])
     print(f"  launches of every rank: {dict(counts)}")
-    return {"counts": {k: counts.get(k, 0) for k in ("nn_bidir", "nn_min_bidir", "nn",
-                                                   "nn_bidir_acc")}}
+    from autourdf_tpu_torch.ops import knn
+
+    return {"counts": {k: counts.get(k, 0) for k in knn.launch_counts}}
 
 
 def read_png(path: str) -> np.ndarray:
@@ -2418,16 +2659,92 @@ def _print_captures(records: list) -> None:
               f"{r['launches']}")
 
 
-def run_programs(dev, root: str, cfg, build: dict) -> dict:
+# the modules whose ICP calls [15] replays eagerly: the structure's link ICP,
+# the chain fit's canonical-union polish, the evaluation's resim alignment
+ICP_SITES = {"link": "autourdf_tpu_torch.structure.links",
+             "polish": "autourdf_tpu_torch.joints.chain",
+             "resim": "autourdf_tpu_torch.eval.resim"}
+
+
+@contextlib.contextmanager
+def _recording_icps(records: dict):
+    """While the block runs, keep the first ICP call of each site of
+    ``ICP_SITES`` (its arguments and its result, cloned) in ``records``."""
+    mods = {site: importlib.import_module(name) for site, name in ICP_SITES.items()}
+    originals = {site: m.icp_point_to_point for site, m in mods.items()}
+
+    def clone(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def recording(site, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if site not in records:
+                records[site] = ([clone(v) for v in a], {k: clone(v) for k, v in kw.items()},
+                                 [clone(v) for v in out])
+            return out
+        return call
+
+    for site, m in mods.items():
+        m.icp_point_to_point = recording(site, originals[site])
+    try:
+        yield records
+    finally:
+        for site, m in mods.items():
+            m.icp_point_to_point = originals[site]
+
+
+def _check_site_icps(dev, records: dict, launched: dict) -> None:
+    """[15]: each recorded site's ICP, eagerly and as a program on its own
+    arguments: the program's result (in the run and here) equal to the eager
+    loop's bit for bit, with the same launches; wall ms of the eager loop,
+    of a fresh capture and of a replay."""
+    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops.icp import icp_point_to_point
+    from autourdf_tpu_torch.utils import programs
+
+    for site in ICP_SITES:
+        if site not in records:
+            _fail(f"no ICP of the {site} site was recorded")
+        args, kw, in_run = records[site]
+        times, outs = {}, {}
+        for name in ("eager", "capture", "replay"):
+            if name == "capture":
+                programs.clear()
+            before = dict(knn.launch_counts)
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            outs[name] = [o.clone() for o in icp_point_to_point(*args, eager=name == "eager", **kw)]
+            torch.cuda.synchronize(dev)
+            times[name] = 1e3 * (time.time() - t0)
+            launched[f"{site} ICP {name}"] = {k: knn.launch_counts[k] - before[k] for k in before}
+        same = all(all(torch.equal(a, b) for a, b in zip(outs[n], outs["eager"]))
+                   for n in ("capture", "replay"))
+        same_run = all(torch.equal(a, b) for a, b in zip(in_run, outs["eager"]))
+        shape = tuple(args[0].shape)
+        print(f"  {site} ICP {shape} against {tuple(args[1].shape)}, "
+              f"{kw.get('max_iterations', 50)} iterations: program equal to the eager loop "
+              f"{same}, the run's result equal {same_run}; eager {times['eager']:.3f} ms, "
+              f"program {times['capture']:.3f} ms with its capture, {times['replay']:.3f} ms "
+              f"replayed; launches {launched[f'{site} ICP replay']}")
+        if not (same and same_run) or len({str(launched[f"{site} ICP {n}"])
+                                             for n in ("eager", "capture", "replay")}) != 1:
+            _fail(f"the {site} ICP's program differs from its eager loop")
+
+
+def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     """Phase 15: the programs against the eager loops on the card.  [4c]'s
     subset (2 sequences x 4 frames of the real scans, seed 0, K=20, hidden
-    512, 300 epochs) three ways: the eager loop, the batched driver's phase
+    512, 300 epochs), and the same with [7]'s options (``mlp_icp``, normals,
+    FPS seeds), three ways: the eager loop, the batched driver's phase
     programs and the fused frame-pair program, whose matrices, labels and
     losses must be equal bit for bit; then [9b]'s chain fit (the known-DoF
     build's links, 1,024 points a link) for 120 steps eager and in 50-step
     programs, whose axes, origins, angles and step losses must be equal bit
-    for bit.  Every capture is made anew here and reported: capture and
-    instantiation seconds, graph nodes, pool bytes."""
+    for bit; then the link, polish and resim ICPs recorded in ``icps`` in
+    their programs against their eager loops, bit for bit.  Every capture
+    is made anew here and reported: capture and instantiation seconds, graph
+    nodes, pool bytes."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.joints.chain import refine_chain
@@ -2437,46 +2754,55 @@ def run_programs(dev, root: str, cfg, build: dict) -> dict:
     from autourdf_tpu_torch.utils import programs
 
     _real_scan_subset(root, 2, 4)
-    sub = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS,
-                         num_videos=2)
-    inp = workflow.registration_inputs(sub, seed=0, device=dev)
-    args = (inp["model"], inp["reg_cfg"], inp["step_params"], inp["anchor_params"], inp["init"],
-            inp["frames"], inp["frame_masks"])
     programs.clear()
     programs.captures.clear()
     knn.reset_launch_counts()
-    regs, launched = {}, {}
-    for name, run in (("eager", lambda: register_sequences_batched(*args, eager=True)),
-                      ("batched", lambda: register_sequences_batched(*args)),
-                      ("fused", lambda: register_sequences_fused(*args))):
-        before = dict(knn.launch_counts)
-        made = len(programs.captures)
-        torch.cuda.synchronize(dev)
-        t0 = time.time()
-        regs[name] = run()
-        torch.cuda.synchronize(dev)
-        seconds = time.time() - t0
-        launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
-        print(f"  registration, {name}: {seconds:.3f} s (captures included), launches "
-              f"{launched[name]}")
-        _print_captures(programs.captures[made:])
-    S, T = inp["frames"].shape[:2]
-    for name in ("batched", "fused"):
-        a, b = regs[name], regs["eager"]
-        mat = float((a.matrices - b.matrices).abs().max())
-        labels = int((a.labels != b.labels).sum())
-        loss = max(float((a.losses - b.losses).abs().max()),
-                   float((a.step_losses - b.step_losses).abs().max()))
-        print(f"  {name} against eager ({S} sequences x {T} frames): max |matrix diff| {mat}, "
-              f"labels that differ {labels}, max |loss diff| {loss}")
-        if (mat, labels, loss) != (0.0, 0, 0.0) or not all(
-                torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields):
-            _fail(f"the {name} registration programs differ from the eager loop")
-        if launched[name] != launched["eager"]:
-            _fail(f"the {name} programs counted other launches than the eager loop: "
-                  f"{launched[name]} against {launched['eager']}")
-    if launched["eager"]["nn_bidir"] != (T - 1) * 2 * EPOCHS:
-        _fail(f"the eager registration launched nn_bidir {launched['eager']['nn_bidir']} times")
+    launched = {}
+    for label, options in (("[4c]'s", dict()),
+                           ("[7]'s", dict(mlp_icp=True, use_normals=True, seed_mode="fps"))):
+        seed_mode = options.pop("seed_mode", "kmeans++")
+        sub = PipelineConfig(robot="wx200_real_5", data_root=root, rot="q", epochs=EPOCHS,
+                             num_videos=2, seed_mode=seed_mode)
+        inp = workflow.registration_inputs(sub, seed=0, device=dev, **options)
+        args = (inp["model"], inp["reg_cfg"], inp["step_params"], inp["anchor_params"],
+                inp["init"], inp["frames"], inp["frame_masks"])
+        regs = {}
+        for name, run in (("eager", lambda: register_sequences_batched(*args, eager=True)),
+                          ("batched", lambda: register_sequences_batched(*args)),
+                          ("fused", lambda: register_sequences_fused(*args))):
+            before = dict(knn.launch_counts)
+            made = len(programs.captures)
+            torch.cuda.synchronize(dev)
+            t0 = time.time()
+            regs[name] = run()
+            torch.cuda.synchronize(dev)
+            seconds = time.time() - t0
+            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+            print(f"  {label} registration, {name}: {seconds:.3f} s (captures included), "
+                  f"launches {launched[name]}")
+            _print_captures(programs.captures[made:])
+        S, T = inp["frames"].shape[:2]
+        for name in ("batched", "fused"):
+            a, b = regs[name], regs["eager"]
+            mat = float((a.matrices - b.matrices).abs().max())
+            labels = int((a.labels != b.labels).sum())
+            loss = max(float((a.losses - b.losses).abs().max()),
+                       float((a.step_losses - b.step_losses).abs().max()))
+            print(f"  {label} {name} against eager ({S} sequences x {T} frames): max |matrix "
+                  f"diff| {mat}, labels that differ {labels}, max |loss diff| {loss}")
+            if (mat, labels, loss) != (0.0, 0, 0.0) or not all(
+                    torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields):
+                _fail(f"the {name} registration programs differ from the eager loop ({label})")
+            if launched[name] != launched["eager"]:
+                _fail(f"the {name} programs counted other launches than the eager loop "
+                      f"({label}): {launched[name]} against {launched['eager']}")
+        expected = (T - 1) * (1 if options else 2) * EPOCHS
+        if launched["eager"]["nn_bidir"] != expected:
+            _fail(f"the eager registration launched nn_bidir {launched['eager']['nn_bidir']} "
+                  f"times ({label})")
+        if options and launched["eager"]["kabsch3"] != (T - 1) * ICP_ITERATIONS:
+            _fail(f"the eager registration launched kabsch3 {launched['eager']['kabsch3']} "
+                  f"times ({label})")
 
     cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
     frames, fmasks = workflow._load_refine_frames(cfg, 5)
@@ -2499,6 +2825,7 @@ def run_programs(dev, root: str, cfg, build: dict) -> dict:
     print(f"  graphed chain fit against eager: max |diff| {gaps}")
     if any(gaps.values()) or launched["chain graphed"] != launched["chain eager"]:
         _fail("the chain-fit programs differ from the eager loop")
+    _check_site_icps(dev, icps, launched)
     return {"counts": dict(knn.launch_counts)}
 
 
@@ -2522,13 +2849,17 @@ def main() -> int:
     print(gpu_line)
 
     t0 = time.time()
-    _cuda.library("knn")
-    log = _cuda.build_logs.get("knn", "(cached)").strip()
-    print(f"[2] built csrc/knn.cu in {time.time() - t0:.1f} s; ptxas:\n{log}")
-    spills = [ln.strip() for ln in log.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    if spills:
-        _fail(f"a kernel spills registers: {spills[:2]}")
+    # one nvcc a source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        list(pool.map(_cuda.build, CUDA_SOURCES))
+    for src in CUDA_SOURCES:
+        _cuda.library(src)
+        log = _cuda.build_logs.get(src, "(cached)").strip()
+        print(f"[2] built csrc/{src}.cu ({time.time() - t0:.1f} s for both); ptxas:\n{log}")
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        if spills:
+            _fail(f"a kernel of {src}.cu spills registers: {spills[:2]}")
     from autourdf_tpu_torch.ops.knn import SWEEP_GROUP_COLS, SWEEP_SUB_ROWS
 
     pairs = SWEEP_SUB_ROWS * SWEEP_GROUP_COLS
@@ -2542,9 +2873,14 @@ def main() -> int:
               f"{sass['total'] / pairs:.2f} a pair; {sass['by_opcode']}")
 
     cfg = PipelineConfig(robot="wx200_real_5", data_root=os.path.join(REPO, "data_real"))
-    _, frames, _ = workflow.load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
+    _, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
     print("[3] kernels against their plain versions")
     timing = check_kernels(dev, frames.shape[2])
+    fullest = np.unravel_index(np.argmax(masks.sum(-1)), masks.shape[:2])
+    timing.update(check_geom_kernels(dev, frames[fullest][masks[fullest]]))
+    # from here on no path may reach PyTorch's solvers on the card: the
+    # geometry kernels stand for them
+    solvers = _forbid_cuda_solvers()
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2559,7 +2895,9 @@ def main() -> int:
         run_reproducibility(dev, roots["repro"])
         print("[6] path B: workflow.run_build_urdf(refine='none', tree='mst') on the artifacts "
               "of [4]")
-        paths["urdf"] = run_urdf_stage(dev, main_path["cfg"])
+        icps: dict = {}             # the sites' first ICPs, which [15] replays eagerly
+        with _recording_icps(icps):
+            paths["urdf"] = run_urdf_stage(dev, main_path["cfg"])
         print("[7] path A: workflow.run_registration(mlp_icp=True, use_normals=True), FPS seeds")
         paths["register_icp"] = run_icp_path(dev, roots["icp"])
         print("[8] large clouds: workflow.run_registration at 20,000 points per frame")
@@ -2572,10 +2910,12 @@ def main() -> int:
             profile_chain_steps(dev, main_path["cfg"], out)
         print("[10] the chain fit's opt-in options: chain_anchors=2, canonical_frames=3, "
               "chain_trunc=2.0, 100 steps")
-        paths["urdf_chain_options"] = run_chain_options(dev, main_path["cfg"])
+        with _recording_icps(icps):
+            paths["urdf_chain_options"] = run_chain_options(dev, main_path["cfg"])
         print("[11] the closed loop: cli all (dataset -> register -> urdf -> evaluate) on the "
               "tracked wx200 estimate")
-        paths["closed_loop"] = loop = run_closed_loop(dev, roots["loop"])
+        with _recording_icps(icps):
+            paths["closed_loop"] = loop = run_closed_loop(dev, roots["loop"])
         print("[12] the parallel layer: sharded Chamfer, auto-shard, (dp, sp) training step and "
               "dp registration, several ranks on the one card, on [11]'s clouds")
         paths["parallel"] = run_parallel(dev, loop)
@@ -2586,22 +2926,28 @@ def main() -> int:
         os.makedirs(os.path.join(tmp, "same_draw"))
         paths["same_draw"] = run_same_draw(dev, os.path.join(tmp, "same_draw"))
         print("[15] programs: the eager loops against the batched and fused registration "
-              "programs and the chain-fit programs, bit for bit")
+              "programs (with and without [7]'s options), the chain-fit programs and the "
+              "link, polish and resim ICPs' programs, bit for bit")
         os.makedirs(os.path.join(tmp, "programs"))
         paths["programs"] = run_programs(dev, os.path.join(tmp, "programs"), main_path["cfg"],
-                                         builds["known DoF"])
+                                         builds["known DoF"], icps)
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",
                "nn": "autourdf_tpu/ops/knn.py:54",
-               "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233"}
+               "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233",
+               "fps": "autourdf_tpu/ops/fps.py:17",
+               "kabsch3": "autourdf_tpu/ops/icp.py:50",
+               "sym_eig3_min": "autourdf_tpu/ops/plane.py:56"}
+    files = {k: "autourdf_tpu_torch/csrc/geom.cu" if k in ("fps", "kabsch3", "sym_eig3_min")
+             else "autourdf_tpu_torch/csrc/knn.cu" for k in sources}
     kernels = []
     chain_shape = timing.pop("chain")
     resim_shape = timing.pop("resim")
     for kname, t in timing.items():
         by_path = {pname: p["counts"][kname] for pname, p in paths.items()}
         kernels.append({
-            "name": kname, "route": "cuda", "source": "autourdf_tpu_torch/csrc/knn.cu",
+            "name": kname, "route": "cuda", "source": files[kname],
             "replaces": sources[kname], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "shape": t["shape"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
@@ -2616,9 +2962,14 @@ def main() -> int:
         if kernels[-1]["launches"] < 1:
             _fail(f"kernel {kname} was launched on no path")
     for k in kernels:
-        if not all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                 "library_ms")):
+        if not all(math.isfinite(k[f]) for f in ("ms", "device_ms", "plain_ms", "bound_ms")) or \
+                not (k["library_ms"] is None or math.isfinite(k["library_ms"])):
             _fail(f"non-finite measurement for {k['name']}")
+    if len(kernels) != len(sources):
+        _fail(f"the kernel line lists {len(kernels)} kernels, not {len(sources)}")
+    if solvers:
+        _fail(f"a path called PyTorch's solvers on the card: {solvers}")
+    print("[5] no path after [3] called torch.linalg.svd, det or eigh on a CUDA tensor")
     print(f"[total] {time.time() - started:.1f} s")
     print(f"[5] card: {gpu_line}")
     print(json.dumps({"kernels": kernels}))

@@ -154,7 +154,8 @@ def test_fps_and_icp_on_card_match_cpu(cuda):
     tgt[2] += 5.0
     out = [icp_point_to_point(src.to(d), tgt.to(d), max_iterations=1, threshold=0.5)
            for d in (cuda, torch.device("cpu"))]
-    # the same correspondences; the 3x3 SVD and sums differ in the last bits
+    # the same correspondences; the Kabsch kernel's Jacobi SVD against
+    # LAPACK's, and the sums, differ in the last bits
     torch.testing.assert_close(out[0].transform.cpu(), out[1].transform, rtol=0, atol=1e-5)
     assert torch.equal(out[0].transform[2].cpu(), torch.eye(4))
 
@@ -468,8 +469,8 @@ def test_capture_on_card_matches_cpu(cuda):
     the card against the CPU: the card's batched projection may round a
     camera coordinate differently, so a point on a pixel or depth edge can
     flip; at most 0.1% of the points do.  The farthest-point picks over the
-    same visible points are equal (the card's loop and the CPU's round each
-    product alike)."""
+    same visible points are equal (the card's kernel adds the three squares
+    in another order than the CPU's loop, which moves no pick here)."""
     import os
 
     from autourdf_tpu_torch.ops.fps import farthest_point_sample
@@ -608,3 +609,206 @@ def test_program_that_waits_on_the_host_raises_on_card(cuda):
         assert prog._graph is None and prog._outputs is None
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.arange(0.0, 16.0, 2.0, device=cuda))   # the card still works
+
+
+# ---------------------------------------------------------------------------
+# the geometry kernels (csrc/geom.cu) and the programs they make possible
+# ---------------------------------------------------------------------------
+
+def _fps_case(case: str, n: int = 3000):
+    rng = np.random.default_rng(21)
+    pts = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    pts[n // 2:n // 2 + 100] = pts[:100]              # duplicated points: equal scores
+    mask = {"dense": None, "masked": rng.random(n) > 0.5,
+            "first_masked": np.arange(n) >= 37,
+            "few_valid": np.isin(np.arange(n), [3, 900, 901, 2500]),
+            "none_valid": np.zeros(n, bool)}[case]
+    return torch.from_numpy(pts), None if mask is None else torch.from_numpy(mask)
+
+
+def test_fps_sum_order_on_card(cuda):
+    """``torch.sum((p - q) ** 2, dim=1)`` on the card adds the squares as
+    (x^2 + z^2) + y^2, the order fps_kernel follows (the CPU adds them
+    left to right)."""
+    from torch_geom_models import fps_dist_kernel_order
+
+    p, _ = _fps_case("dense", 100003)
+    p = p.to(cuda)
+    for q in (p[0], p[77], p[-1]):
+        assert torch.equal(torch.sum((p - q) ** 2, dim=1), fps_dist_kernel_order(p, q))
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "first_masked", "few_valid", "none_valid"])
+def test_fps_kernel_matches_plain_on_card(cuda, case):
+    """One launch of fps_kernel gives the plain loop's picks on the card, bit
+    for bit: ties to the first index, the first valid point first, repeats
+    when fewer than k are valid, all zeros when none is."""
+    from autourdf_tpu_torch.ops import fps
+
+    pts, mask = _fps_case(case)
+    p, m = pts.to(cuda), None if mask is None else mask.to(cuda)
+    before = knn.launch_counts["fps"]
+    got = fps.farthest_point_sample(p, 400, m)
+    assert knn.launch_counts["fps"] == before + 1
+    assert got.dtype == torch.int64 and got.is_cuda
+    assert torch.equal(got, fps._fps_plain(p, 400, m))
+    if case == "none_valid":
+        assert not got.any()
+
+
+def _cross_covariances(B: int, seed: int):
+    """Well-conditioned (sigma_2 - sigma_3 > 1e-2 sigma_1), reflected,
+    rank-2, rank-1 and zero 3x3 matrices (a fifth of each), float32."""
+    from scipy.spatial.transform import Rotation as ScipyRot
+
+    rng = np.random.default_rng(seed)
+    sv = np.sort(rng.uniform(0.2, 3.0, (B, 3)), axis=1)[:, ::-1].copy()
+    sv[:, 2] = np.minimum(sv[:, 2], sv[:, 1] - 0.01 * sv[:, 0])
+    kind = np.arange(B) % 5
+    sv[kind == 1, 2] *= -1
+    sv[kind == 2, 2] = 0.0
+    sv[kind == 3, 1:] = 0.0
+    sv[kind == 4] = 0.0
+    U = ScipyRot.random(B, random_state=seed).as_matrix()
+    V = ScipyRot.random(B, random_state=seed + 1).as_matrix()
+    H = np.einsum("bij,bj,bkj->bik", U, sv, V).astype(np.float32)
+    return torch.from_numpy(H), kind, sv
+
+
+@pytest.mark.parametrize("B", [1, 7, 18, 100, 1000])
+def test_kabsch3_kernel_on_card(cuda, B):
+    """kabsch3_kernel against its plain version (svd + det) on well-conditioned
+    H (1e-5), exactly I at H = 0, a proper rotation for reflections and at
+    rank 1 and 2 (|R R^T - I| and |det R - 1| at most 1e-6), and equal to
+    its model (tests/torch_geom_models.py) bit for bit."""
+    from autourdf_tpu_torch.ops import icp
+    from torch_geom_models import kabsch3_model
+
+    H, kind, _ = _cross_covariances(B, 30 + B)
+    before = knn.launch_counts["kabsch3"]
+    R = icp.kabsch_rotation(H.to(cuda))
+    assert knn.launch_counts["kabsch3"] == before + 1
+    ref = icp._kabsch_rotation_plain(H.to(cuda))
+    good = torch.from_numpy(kind == 0).to(cuda)
+    assert float((R - ref).abs()[good].max()) <= 1e-5
+    zero = torch.from_numpy(kind == 4).to(cuda)
+    assert torch.equal(R[zero], torch.eye(3, device=cuda).expand(int(zero.sum()), 3, 3))
+    Rd = R.double()
+    assert float((Rd @ Rd.transpose(-1, -2) - torch.eye(3, device=cuda, dtype=torch.float64))
+                 .abs().max()) <= 1e-6
+    assert float((torch.linalg.det(Rd) - 1).abs().max()) <= 1e-6
+    assert torch.equal(R.cpu(), kabsch3_model(H))
+
+
+@pytest.mark.parametrize("n", [1, 129, 4988])
+def test_sym_eig3_min_kernel_on_card(cuda, n):
+    """sym_eig3_min_kernel against its plain version (eigh) on neighbourhood
+    covariances of a bumpy sheet: |dot| > 1 - 1e-4 where the two smallest
+    eigenvalues are 10% apart, unit norm to 1e-6, equal to its model bit for
+    bit."""
+    from autourdf_tpu_torch.ops import plane
+    from torch_geom_models import sym_eig3_min_model
+
+    rng = np.random.default_rng(n)
+    xy = rng.uniform(-1, 1, (max(n, 40), 2))
+    pts = np.c_[xy, 0.1 * np.sin(3 * xy[:, 0]) + rng.normal(0, 0.004, len(xy))]
+    pts = torch.from_numpy(pts.astype(np.float32))
+    d = torch.cdist(pts, pts)
+    nb = pts[torch.topk(d, 30, largest=False).indices][:n]
+    c = nb - nb.mean(1, keepdim=True)
+    C = torch.einsum("nki,nkj->nij", c, c)
+    before = knn.launch_counts["sym_eig3_min"]
+    v = plane.smallest_eigenvector(C.to(cuda))
+    assert knn.launch_counts["sym_eig3_min"] == before + 1
+    ref = plane._smallest_eigenvector_plain(C.to(cuda))
+    e = torch.linalg.eigvalsh(C.double())
+    sep = ((e[:, 1] - e[:, 0]) > 0.1 * e[:, 1]).to(cuda)
+    dots = (v * ref).sum(1).abs()
+    assert bool((dots[sep] > 1 - 1e-4).all())
+    assert float((v.norm(dim=1) - 1).abs().max()) <= 1e-6
+    assert torch.equal(v.cpu(), sym_eig3_min_model(C))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_graphed_icp_equals_eager_on_card(cuda, masked):
+    """icp_point_to_point as a program (captured, then replayed on other
+    inputs) gives its eager loop's transforms, fitness and RMSE bit for bit,
+    with the same launches."""
+    from autourdf_tpu_torch.ops import icp
+
+    rng = np.random.default_rng(5)
+    src = torch.from_numpy(rng.normal(scale=0.1, size=(6, 700, 3)).astype(np.float32)).to(cuda)
+    tgt = src.flip(1) + torch.tensor([0.01, -0.02, 0.015], device=cuda)
+    kw = dict(max_iterations=20, threshold=0.3)
+    if masked:
+        kw.update(source_mask=torch.from_numpy(rng.random((6, 700)) > 0.1).to(cuda),
+                  target_mask=torch.from_numpy(rng.random((6, 700)) > 0.1).to(cuda))
+    for shift in (0.0, 0.005, 0.01):
+        before = dict(knn.launch_counts)
+        a = icp.icp_point_to_point(src, tgt + shift, **kw)
+        mid = dict(knn.launch_counts)
+        b = icp.icp_point_to_point(src, tgt + shift, eager=True, **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert {k: mid[k] - before[k] for k in mid} == \
+            {k: knn.launch_counts[k] - mid[k] for k in mid}
+        assert knn.launch_counts["kabsch3"] - mid["kabsch3"] == 20
+
+
+def test_graphed_registration_with_mlp_icp_and_normals_equals_eager_on_card(cuda, monkeypatch):
+    """--mlp_icp --normal: the batched driver's programs (its ICP phase and
+    its normals resample among them) and the fused frame-pair program give
+    the eager loop's results bit for bit, with the same launches; no path
+    calls PyTorch's svd, det or eigh."""
+    from autourdf_tpu_torch.registration import (RegistrationConfig, register_sequences_batched,
+                                                 register_sequences_fused)
+
+    model, params, init, ft, mt = _small_registration(cuda, True)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a torch.linalg solver was called on the card")
+
+    for fn in ("svd", "det", "eigh"):
+        monkeypatch.setattr(torch.linalg, fn, forbidden)
+    cfg = RegistrationConfig(num_seg=4, hidden_dim=32, epochs=30, kmeans_iters=8,
+                             dispatch_epochs=25, mlp_icp=True, icp_iterations=10,
+                             use_normals=True)
+    out, launched = {}, {}
+    for name, run in (("eager", lambda: register_sequences_batched(
+                           model, cfg, params, params, init, ft, mt, eager=True)),
+                      ("batched", lambda: register_sequences_batched(
+                           model, cfg, params, params, init, ft, mt)),
+                      ("fused", lambda: register_sequences_fused(
+                           model, cfg, params, params, init, ft, mt))):
+        for _ in range(2):
+            before = dict(knn.launch_counts)
+            out[name] = run()
+            torch.cuda.synchronize()
+            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+    for name in ("batched", "fused"):
+        for f in out["eager"]._fields:
+            assert torch.equal(getattr(out[name], f), getattr(out["eager"], f)), (name, f)
+        assert launched[name] == launched["eager"], (name, launched)
+    assert launched["eager"]["kabsch3"] == 2 * 10 and launched["eager"]["sym_eig3_min"] == 2 * 2
+
+
+def test_capture_reads_nothing_back_on_card(cuda):
+    """capture_cloud (projection, splat, visibility, noise, farthest-point
+    pick) captures into a CUDA graph, which fails on any read back to the
+    host, and the replay gives the eager capture's cloud."""
+    import os
+
+    from autourdf_tpu_torch.sim import KinematicEnv
+    from autourdf_tpu_torch.sim.capture import capture_cloud
+    from autourdf_tpu_torch.utils import programs
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    gt = os.path.join(repo, "data_ab5", "urdf", "wx200_5_20_seg", "4_deg_20_cams.urdf")
+    env = KinematicEnv.create(gt, dof=5, camera_rng=np.random.default_rng(0), device=cuda)
+    env.set_joint_positions(np.array([0.3, -0.2, 0.4, 0.1, -0.3]))
+    pts = torch.from_numpy(env.posed_surface_points()).to(cuda)
+    prog = programs.Program(lambda p: capture_cloud(p, env.rig, num_points=2000), "capture")
+    got = prog(pts)
+    ref = capture_cloud(pts, env.rig, num_points=2000)
+    assert prog._graph is not None
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
