@@ -12,10 +12,11 @@ relative fitness/RMSE criteria.  Where the JAX module maps one ICP over
 clusters with ``vmap`` and iterates under ``lax.scan`` in one compiled
 program, here the batch axis is written out and the loop runs as one device
 program (``utils/programs.py``: a CUDA graph on the card) keyed by the
-shapes, the iteration count, the threshold and the relative criteria;
-``eager=True`` runs the same loop as plain Python, the reference the
-program is held against.  Nothing is read back from the device between
-iterations.
+shapes and the iteration count; the threshold and the relative criteria go
+in as 0-d tensors, so one capture serves every threshold (the chain fit's
+polish works one out for each link).  ``eager=True`` runs the same loop as
+plain Python, the reference the program is held against.  Nothing is read
+back from the device between iterations.
 """
 
 from __future__ import annotations
@@ -108,9 +109,10 @@ def _kabsch(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return T
 
 
-def _icp_loop(source, target, T, source_mask, target_mask, max_iterations: int,
-              threshold: float, relative_rmse: float, relative_fitness: float):
-    """The ICP iterations on a batch: ``(T, fitness, rmse)``."""
+def _icp_loop(source, target, T, source_mask, target_mask, crit, max_iterations: int):
+    """The ICP iterations on a batch: ``(T, fitness, rmse)``.  ``crit`` is
+    ``(threshold, relative_rmse, relative_fitness)`` as 0-d tensors."""
+    threshold, relative_rmse, relative_fitness = crit
     B, dev, dt = source.shape[0], source.device, source.dtype
     tgt = (target if target_mask is None
            else torch.where(target_mask[..., None], target, PAD_COORD))
@@ -165,15 +167,17 @@ def icp_point_to_point(
             for t in (source, target, init, source_mask, target_mask))
     if init is None:
         init = torch.eye(4, dtype=source.dtype, device=source.device).repeat(source.shape[0], 1, 1)
-    crit = (max_iterations, float(threshold), float(relative_rmse), float(relative_fitness))
+    crit = tuple(torch.full((), float(v), dtype=source.dtype, device=source.device)
+                 for v in (threshold, relative_rmse, relative_fitness))
     if eager:
-        T, fitness, rmse = _icp_loop(source, target, init, source_mask, target_mask, *crit)
+        T, fitness, rmse = _icp_loop(source, target, init, source_mask, target_mask, crit,
+                                     max_iterations)
     else:
         # the first capture of the family warms up on one iteration
         T, fitness, rmse = programs.clone(programs.run(
-            ("icp", *crit), lambda *a: _icp_loop(*a, *crit),
-            source, target, init, source_mask, target_mask,
-            warm=lambda *a: _icp_loop(*a, 1, *crit[1:])))
+            ("icp", max_iterations), lambda *a: _icp_loop(*a, max_iterations),
+            source, target, init, source_mask, target_mask, crit,
+            warm=lambda *a: _icp_loop(*a, 1)))
     if squeeze:
         return ICPResult(T[0], fitness[0], rmse[0])
     return ICPResult(T, fitness, rmse)
@@ -188,11 +192,10 @@ def masked_icp_clusters(
     scale: float = 1.2,
     threshold: float = 1.0,
     max_iterations: int = 30,
-    eager: bool = False,
 ) -> torch.Tensor:
     """Per-cluster AABB-masked ICP refinement of every cluster (of every
-    sequence) as one batch of ``S * K`` ICPs (``eager``: as in
-    :func:`icp_point_to_point`).
+    sequence) as one batch of ``S * K`` ICPs, as the plain loop: it runs
+    inside the registration's ICP-phase and frame-pair programs.
 
     For each cluster, the predicted world-frame AABB scaled by ``scale``
     gates the target points, then p2p ICP refines the cluster's 4x4 from
@@ -224,7 +227,7 @@ def masked_icp_clusters(
         threshold=threshold,
         source_mask=sel.reshape(S * K, N),
         target_mask=in_box.reshape(S * K, M),
-        eager=eager,
+        eager=True,
     )
     out = res.transform.reshape(S, K, 4, 4)
     return out[0] if squeeze else out

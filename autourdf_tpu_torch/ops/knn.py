@@ -34,11 +34,6 @@ Norm = Literal[1, 2]
 # small enough that squared distances stay well inside f32 range.
 PAD_COORD = 1e6
 
-# Kernel launch counts of every wrapper of the port (ops/_cuda.py): the four
-# search kernels' and the geometry kernels'.
-launch_counts = _cuda.launch_counts
-reset_launch_counts = _cuda.reset_launch_counts
-
 # Block constants of the sweeps in csrc/knn.cu (bidir_sweep behind the two
 # indexed bidirectional kernels, light_sweep behind nn_kernel and
 # nn_min_bidir_kernel), mirrored here so that the planning below runs without
@@ -411,7 +406,7 @@ def _launch_sweep(x, y, norm: int, plan: SweepPlan):
         args = (*head, *block, *(o.data_ptr() for o in out), *tail)
     err = _cuda.launch(fn, x, *args)
     _cuda.check(err, f"knn launch of {plan.kernel}")
-    launch_counts[plan.kernel] += 1
+    _cuda.launch_counts[plan.kernel] += 1
     return out
 
 

@@ -101,24 +101,23 @@ def _train(model, cfg: RegistrationConfig, theta, matrices, target, points, labe
                           dispatch_epochs=cfg.dispatch_epochs, eager=eager)
 
 
-def _icp(cfg: RegistrationConfig, points, labels, matrices, target, eager: bool):
+def _icp(cfg: RegistrationConfig, points, labels, matrices, target):
     """The MLP+ICP variant's refinement: AABB-masked p2p ICP of each cluster
     pose instead of the anchor MLP, all S * K clusters as one batch."""
     return masked_icp_clusters(points, labels, matrices, target, num_clusters=cfg.num_seg,
-                               scale=cfg.icp_box_scale, max_iterations=cfg.icp_iterations,
-                               eager=eager)
+                               scale=cfg.icp_box_scale, max_iterations=cfg.icp_iterations)
 
 
 def _icp_phase(cfg: RegistrationConfig, points, labels, matrices, target, eager: bool):
     """:func:`_icp` as a program (the JAX driver's ``icp_phase``), or eagerly
     for the plain loop; the first capture warms up on one ICP iteration."""
     if eager:
-        return _icp(cfg, points, labels, matrices, target, eager=True)
+        return _icp(cfg, points, labels, matrices, target)
     one = cfg._replace(icp_iterations=1)
     return programs.clone(programs.run(
         ("icp_phase", cfg.num_seg, cfg.icp_box_scale, cfg.icp_iterations),
-        lambda *a: _icp(cfg, *a, eager=True), points, labels, matrices, target,
-        warm=lambda *a: _icp(one, *a, eager=True)))
+        lambda *a: _icp(cfg, *a), points, labels, matrices, target,
+        warm=lambda *a: _icp(one, *a)))
 
 
 def _resample(cfg: RegistrationConfig, new_m, target, target_mask):
@@ -218,7 +217,7 @@ def _frame_pair(model, cfg: RegistrationConfig, state, anchor, target, target_ma
     step = _train(model, cfg, step_theta, matrices, target, points, labels, target_mask,
                   points_mask, cfg.lr_step)
     if cfg.mlp_icp:
-        new_m = _icp(cfg, points, labels, step.best_matrices, target, eager=True)
+        new_m = _icp(cfg, points, labels, step.best_matrices, target)
         loss = step.best_loss
     else:
         anchor_points, anchor_labels, anchor_mask = anchor

@@ -36,7 +36,8 @@ Phases, each of which fails the run on error:
    compacted, k = 5,000; at 10,000 of 10,000 points; on 100,000 points with
    a duplicated block and a mask; with fewer valid points than k and with
    none), ``kabsch3_kernel`` (B = 100, 5, 18, 1: 1e-5 on well-conditioned
-   and reflected H, exactly I at H = 0, proper rotations at rank 1 and 2)
+   H, exactly I at H = 0, proper rotations at rank 1 and 2 and for
+   reflected H, whose error is printed but not bounded)
    and ``sym_eig3_min_kernel`` (30-neighbour covariances of one real frame
    and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest
    eigenvalues are 10% apart, unit norm to 1e-6), each timed beside its
@@ -596,7 +597,7 @@ def _check_chain_shape(dev, n_main: int, sms: int) -> dict:
     forward-only evaluations, each exact against its plain version, and
     timed with its plain version, one library call and the bound.  Returns
     kernel -> measurements, for the kernels line."""
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda, knn
 
     S, N, M = CHAIN_S, CHAIN_N, n_main
     x, y = _case(np.random.default_rng(9), S, N, M, dev, True)
@@ -606,9 +607,9 @@ def _check_chain_shape(dev, n_main: int, sms: int) -> dict:
     fns = {"nn_bidir_acc": lambda: knn.nn_search_bidirectional(x, y, 1),
            "nn_bidir": lambda: knn._nn_bidir_cuda(x, y, 1),
            "nn_min_bidir": lambda: knn.nn_min_bidirectional(x, y, 1)}
-    before = dict(knn.launch_counts)
+    before = dict(_cuda.launch_counts)
     got = {k: f() for k, f in fns.items()}
-    took = [k for k in knn.launch_counts if knn.launch_counts[k] > before[k]]
+    took = [k for k in _cuda.launch_counts if _cuda.launch_counts[k] > before[k]]
     errs = {k: max(_max_abs(got[k][0], ref[0]), _max_abs(got[k][2], ref[2]))
             for k in ("nn_bidir_acc", "nn_bidir")}
     same = {k: all(torch.equal(a, b) for a, b in zip(got[k], ref)) for k in errs}
@@ -797,7 +798,7 @@ def _check_sweep_design(dev, norm: int) -> dict:
     under the planned block shape and under forced ones (one sub-tile a block,
     many sub-tiles, many threads, narrow column chunks): exact against the
     plain version, hence equal to each other."""
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda, knn
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(20 + norm)
@@ -838,9 +839,9 @@ def _check_sweep_design(dev, norm: int) -> dict:
         xn, yn = tie_layout_clouds(rng, 1, 100, M)
         x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
         ref = knn._nn_bidir_plain(x, y, norm)
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         got = knn.nn_search_bidirectional(x, y, norm)
-        took = [k for k in ("nn_bidir", "nn_bidir_acc") if knn.launch_counts[k] > before[k]]
+        took = [k for k in ("nn_bidir", "nn_bidir_acc") if _cuda.launch_counts[k] > before[k]]
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
         refused = False
         try:
@@ -1002,10 +1003,13 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
         ("fewer valid than k", uniform, 50, few, None),
         ("no valid point", uniform, 20, torch.zeros_like(few), None),
     ]
+    fps_err = 0.0                       # the largest difference of two picked indices
     for label, pts, k, mask, plain in cases:
         got = fps.farthest_point_sample(pts, k, mask)
         ref = plain() if plain is not None else fps._fps_plain(pts, k, mask)
         same = torch.equal(got, ref)
+        if got.shape == ref.shape:
+            fps_err = max(fps_err, float((got - ref).abs().max()))
         print(f"  fps          {label}: N={pts.shape[0]}, valid "
               f"{pts.shape[0] if mask is None else int(mask.sum())}, k={k}: picks equal {same}")
         if not same:
@@ -1075,7 +1079,7 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
             plain_ms=_time_ms(lambda: fps._fps_plain(surface, k, vis), reps=2, warm=1),
             library_ms=None,
             bound=bound((k - 1) * n_vis * FPS_OPS_PER_POINT, P * (12 + 1) + k * 8),
-            shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=0.0),
+            shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=fps_err),
         "kabsch3": dict(
             ms=_time_ms(lambda: icp.kabsch_rotation(H)),
             device_ms=_device_ms(lambda: icp.kabsch_rotation(H)),
@@ -1122,7 +1126,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
     """Phase 4: the registration path through its public entry point, into
     the data root ``root`` (phase 6 builds the URDF from its artifacts)."""
     from autourdf_tpu_torch.config import PipelineConfig
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.ops.chamfer import chamfer_distance
     from autourdf_tpu_torch.registration import predicted_world_points
     from autourdf_tpu_torch import workflow
@@ -1139,7 +1143,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
                            for t in range(T - 1)], dim=1)
     raw_mean = float(raw.mean())
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     made = len(programs.captures)
     torch.cuda.synchronize(dev)
     t0 = time.time()
@@ -1150,7 +1154,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
         resid = chamfer_distance(last, ft[:, -1], mt[:, -1], mt[:, -1])
     torch.cuda.synchronize(dev)
     wall = time.time() - t0
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
 
     missing = [f"{n}/{d}/{t:04}.{ext}" for n in names
                for d, ext in (("matrix", "npy"), ("cluster", "npz")) for t in range(T)
@@ -1190,7 +1194,7 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
 def _launch_shapes(shapes: collections.Counter):
     """Count the launches of the search kernels made on the host inside the
     block by (kernel, S, N, M, norm): the eager calls and the warm-ups and
-    captures of programs, not their replays (``knn.launch_counts`` has
+    captures of programs, not their replays (``_cuda.launch_counts`` has
     those)."""
     from autourdf_tpu_torch.ops import knn
 
@@ -1232,12 +1236,12 @@ def run_urdf_stage(dev, cfg) -> dict:
     """Phase 6 (Path B): structure -> joints -> meshes -> URDF from the
     artifacts of phase 4, with the known DoF and with the DoF search."""
     from autourdf_tpu_torch import workflow
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     for label, kw in (("known DoF", dict(unknown_dof=False)),
                       ("unknown DoF, no probe", dict(unknown_dof=True, dof_probe=False))):
-        before = knn.launch_counts["nn"]
+        before = _cuda.launch_counts["nn"]
         shapes: collections.Counter = collections.Counter()
         t0 = time.time()
         with _launch_shapes(shapes):        # the shapes this build launches
@@ -1245,7 +1249,7 @@ def run_urdf_stage(dev, cfg) -> dict:
                                           verbose=False, device=dev, **kw)
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
-        launched = knn.launch_counts["nn"] - before
+        launched = _cuda.launch_counts["nn"] - before
         print(f"  {label}: host launches (programs' warm-ups and captures, not their replays) "
               f"by (kernel, S, N, M, norm): {dict(shapes.most_common())}")
         axes = _check_urdf(out, label)
@@ -1253,7 +1257,7 @@ def run_urdf_stage(dev, cfg) -> dict:
               f"{seconds:.3f} s, nn launches {launched}")
         if launched < 1:
             _fail(f"the urdf stage did not go through the nn kernel ({label})")
-    return {"counts": dict(knn.launch_counts)}
+    return {"counts": dict(_cuda.launch_counts)}
 
 
 def _raw_chamfer(dev, frames, masks) -> float:
@@ -1276,7 +1280,7 @@ def run_icp_path(dev, root: str) -> dict:
     phase and the normals resample run as programs."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.utils import programs
 
     S, T = 2, 4
@@ -1285,11 +1289,11 @@ def run_icp_path(dev, root: str) -> dict:
                          num_videos=S, seed_mode="fps")
     _, frames, masks = workflow.load_raw_sequences_padded(cfg.raw_dir(), S)
     raw_mean = _raw_chamfer(dev, frames, masks)
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     made = len(programs.captures)
     stats = workflow.run_registration(cfg, seed=0, mlp_icp=True, use_normals=True, device=dev)
     torch.cuda.synchronize(dev)
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
     result = stats.pop("result")
     print(f"  {frames.shape[0]} sequences x {frames.shape[1]} frames x {frames.shape[2]} points, "
           f"K={cfg.num_segments()}, hidden 512, {EPOCHS} epochs, mlp_icp, normals, FPS seeds: "
@@ -1357,7 +1361,7 @@ def run_large_cloud_path(dev, root: str) -> dict:
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.io.ply import write_ply
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
     T = 3
     cfg = PipelineConfig(robot="wx200_5", data_root=root, rot="q", epochs=EPOCHS, num_videos=1)
@@ -1365,10 +1369,10 @@ def run_large_cloud_path(dev, root: str) -> dict:
     for t in range(T):
         write_ply(os.path.join(cfg.raw_dir(), "V0000", f"{t:04}", "robot.ply"), frames[t])
     raw_mean = _raw_chamfer(dev, frames[None], None)
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     stats = workflow.run_registration(cfg, seed=0, device=dev)
     torch.cuda.synchronize(dev)
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
     result = stats.pop("result")
     expected = (T - 1) * 2 * EPOCHS
     print(f"  1 sequence x {T} frames x {LARGE_N} points (synthetic 3-link chain), "
@@ -1504,15 +1508,15 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
     the unknown DoF) on the artifacts of phase 4, known DoF then unknown.
     Returns the path's counts and the builds' outputs by label."""
     from autourdf_tpu_torch import workflow
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     outs = {}
     for label, kw in (("known DoF", dict(unknown_dof=False)),
                       ("unknown DoF, probe ladder", dict(unknown_dof=True))):
         shapes: collections.Counter = collections.Counter()
         fits: list = []
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         torch.cuda.synchronize(dev)
         t0 = time.time()
         with _launch_shapes(shapes), _chain_fits(fits):
@@ -1520,7 +1524,7 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
         outs[label] = out
-        launched = {k: knn.launch_counts[k] - before[k] for k in knn.launch_counts}
+        launched = {k: _cuda.launch_counts[k] - before[k] for k in _cuda.launch_counts}
         axes = _check_urdf(out, label)
         print(f"  {label}: {seconds:.3f} s wall; {out['num_links']} links, dof {out['dof']}, "
               f"{len(axes)} joints; launches {launched}")
@@ -1552,7 +1556,7 @@ def run_default_urdf(dev, cfg) -> tuple[dict, dict]:
         for k in ("nn_bidir_acc", "nn_min_bidir", "nn"):
             if launched[k] < 1:
                 _fail(f"the default urdf stage did not launch {k} ({label})")
-    return {"counts": dict(knn.launch_counts)}, outs
+    return {"counts": dict(_cuda.launch_counts)}, outs
 
 
 @contextlib.contextmanager
@@ -1637,9 +1641,9 @@ def run_chain_options(dev, cfg) -> dict:
     canonical_frames=3 (the ICP polish of the canonical union), chain_trunc=2.0
     (the truncated Chamfer)."""
     from autourdf_tpu_torch import workflow
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     fits: list = []
     torch.cuda.synchronize(dev)
     t0 = time.time()
@@ -1648,7 +1652,7 @@ def run_chain_options(dev, cfg) -> dict:
                                       canonical_frames=3, chain_trunc=2.0, end_video=5,
                                       verbose=False, device=dev)
     torch.cuda.synchronize(dev)
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
     axes = _check_urdf(out, "chain options")
     fit_steps = [(f["kind"], f["steps"]) for f in fits]
     print(f"  {time.time() - t0:.3f} s wall; {out['num_links']} links, {len(axes)} joints; fits "
@@ -1740,7 +1744,7 @@ def time_capture(dev, gt: str) -> None:
     evaluation (400 x 400 px, 10,000 picked), each with the share of its
     farthest-point pick (one launch of fps_kernel under the visibility mask,
     as the capture makes it); medians of 3 after a warm-up."""
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.ops.fps import farthest_point_sample
     from autourdf_tpu_torch.sim import KinematicEnv
     from autourdf_tpu_torch.sim.capture import visible_mask
@@ -1766,9 +1770,9 @@ def time_capture(dev, gt: str) -> None:
         whole = wall(lambda: env.capture(gen, num_points=k, width=pix, height=pix,
                                          pose_noise=noise[0], point_noise=noise[1]))
         vis = visible_mask(pts, env.rig, pix, pix).any(0)
-        before = knn.launch_counts["fps"]
+        before = _cuda.launch_counts["fps"]
         fps = wall(lambda: farthest_point_sample(pts, k, vis))
-        launches = (knn.launch_counts["fps"] - before) // 4
+        launches = (_cuda.launch_counts["fps"] - before) // 4
         splat = wall(lambda: visible_mask(pts, env.rig, pix, pix))
         print(f"  one capture, 20 cameras at {pix} x {pix} px, {len(pts)} surface points "
               f"({int(vis.sum())} visible), {k} picked: {1e3 * whole:.3f} ms wall; projection, "
@@ -1816,7 +1820,7 @@ def run_closed_loop(dev, root: str) -> dict:
     from autourdf_tpu_torch import cli
     from autourdf_tpu_torch.io import native
     from autourdf_tpu_torch.io.ply import read_ply
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
     if not native.available():
         _fail(f"the native host library did not build: {native.build_log[-2000:]}")
@@ -1827,7 +1831,7 @@ def run_closed_loop(dev, root: str) -> dict:
                                    "cam_dist": 1.5, "ori": [0, 0, 0], "sim_ori": [0, 0, 0]}}, f)
     stages: dict = {}
     log = os.path.join(root, "cli_all.log")
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     torch.cuda.synchronize(dev)
     t0 = time.time()
     with _timed_stages(stages), open(log, "w") as f, contextlib.redirect_stdout(f):
@@ -1835,7 +1839,7 @@ def run_closed_loop(dev, root: str) -> dict:
                        "--data-root", root])
     torch.cuda.synchronize(dev)
     wall = time.time() - t0
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
     with open(log) as f:
         lines = f.read().splitlines()
     print(f"  cli all: exit {rc}, {wall:.3f} s wall; {len(lines)} lines of output, the last:")
@@ -1926,14 +1930,14 @@ REG_ATOL = 1e-5
 def _counted(fn):
     """``(result, wall s, launch counts)`` of one call, device synchronised,
     the kernels' counts set to 0 just before it."""
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.time() - t0, dict(knn.launch_counts)
+    return out, time.time() - t0, dict(_cuda.launch_counts)
 
 
 def _shard_case(c: dict, dev):
@@ -2254,9 +2258,9 @@ def run_parallel(dev, loop: dict) -> dict:
     for r in two + four:
         counts.update(r["counts"])
     print(f"  launches of every rank: {dict(counts)}")
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
 
-    return {"counts": {k: counts.get(k, 0) for k in knn.launch_counts}}
+    return {"counts": {k: counts.get(k, 0) for k in _cuda.launch_counts}}
 
 
 def read_png(path: str) -> np.ndarray:
@@ -2537,7 +2541,7 @@ def run_same_draw(dev, root: str) -> dict:
     port's structure on both registrations beside the record's."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.registration import (RegistrationConfig, SegmentInit,
                                                  register_sequences_batched, train_pose_mlp)
 
@@ -2559,13 +2563,13 @@ def run_same_draw(dev, root: str) -> dict:
     reg_cfg = RegistrationConfig(num_seg=int(rec["init_matrices"].shape[0]),
                                  epochs=int(rec["epochs"]))
 
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     torch.cuda.synchronize(dev)
     t0 = time.time()
     res = register_sequences_batched(model, reg_cfg, sp, ap, init, ft, mt)
     torch.cuda.synchronize(dev)
     seconds = time.time() - t0
-    counts = dict(knn.launch_counts)
+    counts = dict(_cuda.launch_counts)
 
     # pair 0->1 once more, phase by phase, for the per-epoch histories
     tile = lambda x: x[None].expand((S,) + x.shape)
@@ -2699,7 +2703,7 @@ def _check_site_icps(dev, records: dict, launched: dict) -> None:
     arguments: the program's result (in the run and here) equal to the eager
     loop's bit for bit, with the same launches; wall ms of the eager loop,
     of a fresh capture and of a replay."""
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.ops.icp import icp_point_to_point
     from autourdf_tpu_torch.utils import programs
 
@@ -2711,13 +2715,13 @@ def _check_site_icps(dev, records: dict, launched: dict) -> None:
         for name in ("eager", "capture", "replay"):
             if name == "capture":
                 programs.clear()
-            before = dict(knn.launch_counts)
+            before = dict(_cuda.launch_counts)
             torch.cuda.synchronize(dev)
             t0 = time.time()
             outs[name] = [o.clone() for o in icp_point_to_point(*args, eager=name == "eager", **kw)]
             torch.cuda.synchronize(dev)
             times[name] = 1e3 * (time.time() - t0)
-            launched[f"{site} ICP {name}"] = {k: knn.launch_counts[k] - before[k] for k in before}
+            launched[f"{site} ICP {name}"] = {k: _cuda.launch_counts[k] - before[k] for k in before}
         same = all(all(torch.equal(a, b) for a, b in zip(outs[n], outs["eager"]))
                    for n in ("capture", "replay"))
         same_run = all(torch.equal(a, b) for a, b in zip(in_run, outs["eager"]))
@@ -2748,7 +2752,7 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.config import PipelineConfig
     from autourdf_tpu_torch.joints.chain import refine_chain
-    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.ops import _cuda
     from autourdf_tpu_torch.registration import (register_sequences_batched,
                                                  register_sequences_fused)
     from autourdf_tpu_torch.utils import programs
@@ -2756,7 +2760,7 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     _real_scan_subset(root, 2, 4)
     programs.clear()
     programs.captures.clear()
-    knn.reset_launch_counts()
+    _cuda.reset_launch_counts()
     launched = {}
     for label, options in (("[4c]'s", dict()),
                            ("[7]'s", dict(mlp_icp=True, use_normals=True, seed_mode="fps"))):
@@ -2770,14 +2774,14 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
         for name, run in (("eager", lambda: register_sequences_batched(*args, eager=True)),
                           ("batched", lambda: register_sequences_batched(*args)),
                           ("fused", lambda: register_sequences_fused(*args))):
-            before = dict(knn.launch_counts)
+            before = dict(_cuda.launch_counts)
             made = len(programs.captures)
             torch.cuda.synchronize(dev)
             t0 = time.time()
             regs[name] = run()
             torch.cuda.synchronize(dev)
             seconds = time.time() - t0
-            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+            launched[name] = {k: _cuda.launch_counts[k] - before[k] for k in before}
             print(f"  {label} registration, {name}: {seconds:.3f} s (captures included), "
                   f"launches {launched[name]}")
             _print_captures(programs.captures[made:])
@@ -2809,14 +2813,14 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     fits = {}
     for name in ("eager", "graphed"):
         made = len(programs.captures)
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         torch.cuda.synchronize(dev)
         t0 = time.time()
         fits[name] = refine_chain(build["links"], build["joints"], cms, frames, steps=120,
                                   points_per_link=1024, frame_masks=fmasks, freeze_probe=False,
                                   device=dev, eager=name == "eager")[1]
         torch.cuda.synchronize(dev)
-        launched[f"chain {name}"] = {k: knn.launch_counts[k] - before[k] for k in before}
+        launched[f"chain {name}"] = {k: _cuda.launch_counts[k] - before[k] for k in before}
         print(f"  chain fit, {name}: 120 steps, {time.time() - t0:.3f} s (captures included), "
               f"launches {launched[f'chain {name}']}")
         _print_captures(programs.captures[made:])
@@ -2826,7 +2830,7 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     if any(gaps.values()) or launched["chain graphed"] != launched["chain eager"]:
         _fail("the chain-fit programs differ from the eager loop")
     _check_site_icps(dev, icps, launched)
-    return {"counts": dict(knn.launch_counts)}
+    return {"counts": dict(_cuda.launch_counts)}
 
 
 def main() -> int:

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from autourdf_tpu_torch.ops import knn
+from autourdf_tpu_torch.ops import _cuda, knn
 from autourdf_tpu_torch.ops.chamfer import chamfer_distance
 
 pytestmark = pytest.mark.cuda
@@ -43,7 +43,7 @@ def _clouds(S, N, M, ties, dev):
 def test_kernels_match_plain_on_card(cuda, shape, norm):
     S, N, M, ties = shape
     x, y = _clouds(S, N, M, ties, cuda)
-    before = dict(knn.launch_counts)
+    before = dict(_cuda.launch_counts)
     got = knn.nn_search_bidirectional(x, y, norm)
     ref = knn._nn_bidir_plain(x, y, norm)
     for a, b in zip(got, ref):
@@ -51,8 +51,8 @@ def test_kernels_match_plain_on_card(cuda, shape, norm):
     gmin = knn.nn_min_bidirectional(x, y, norm)
     rmin = knn._nn_min_bidir_plain(x, y, norm)
     assert torch.equal(gmin[0], rmin[0]) and torch.equal(gmin[1], rmin[1])
-    assert knn.launch_counts["nn_bidir"] == before["nn_bidir"] + 1
-    assert knn.launch_counts["nn_min_bidir"] == before["nn_min_bidir"] + 1
+    assert _cuda.launch_counts["nn_bidir"] == before["nn_bidir"] + 1
+    assert _cuda.launch_counts["nn_min_bidir"] == before["nn_min_bidir"] + 1
 
 
 def test_chamfer_grad_on_card_matches_cpu(cuda):
@@ -78,11 +78,11 @@ def test_chamfer_grad_on_card_matches_cpu(cuda):
 def test_nn_kernel_matches_plain_on_card(cuda, shape, norm):
     S, N, M, ties = shape
     x, y = _clouds(S, N, M, ties, cuda)
-    before = knn.launch_counts["nn"]
+    before = _cuda.launch_counts["nn"]
     got = knn.nn_search(x, y, norm)
     ref = knn._nn_plain(x, y, norm)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert knn.launch_counts["nn"] == before + 1
+    assert _cuda.launch_counts["nn"] == before + 1
     # every target at the sentinel: index 0 at a finite distance
     d, i = knn.nn_search(x, torch.full_like(y, knn.PAD_COORD), norm)
     assert bool(torch.isfinite(d).all()) and int(i.abs().max()) == 0
@@ -94,9 +94,9 @@ def test_nn_kernel_matches_plain_on_card(cuda, shape, norm):
 def test_accumulator_kernel_matches_plain_and_per_tile_on_card(cuda, shape, norm):
     S, N, M, ties = shape
     x, y = _clouds(S, N, M, ties, cuda)
-    before = knn.launch_counts["nn_bidir_acc"]
+    before = _cuda.launch_counts["nn_bidir_acc"]
     got = knn._nn_bidir_acc_cuda(x, y, norm)
-    assert knn.launch_counts["nn_bidir_acc"] == before + 1
+    assert _cuda.launch_counts["nn_bidir_acc"] == before + 1
     for ref in (knn._nn_bidir_plain(x, y, norm), knn._nn_bidir_cuda(x, y, norm)):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
@@ -127,14 +127,14 @@ def test_accumulator_tie_rule_under_many_blocks(cuda, norm):
 
 def test_dispatch_by_scratch_size_on_card(cuda):
     x, y = _clouds(1, 20000, 20000, False, cuda)
-    before = dict(knn.launch_counts)
+    before = dict(_cuda.launch_counts)
     big = knn.nn_search_bidirectional(x, y, 1)
-    assert knn.launch_counts["nn_bidir_acc"] == before["nn_bidir_acc"] + 1
-    assert knn.launch_counts["nn_bidir"] == before["nn_bidir"]
+    assert _cuda.launch_counts["nn_bidir_acc"] == before["nn_bidir_acc"] + 1
+    assert _cuda.launch_counts["nn_bidir"] == before["nn_bidir"]
     for a, b in zip(big, knn._nn_bidir_cuda(x, y, 1)):
         assert torch.equal(a, b)
     knn.nn_search_bidirectional(x[:, :5000], y[:, :5000], 1)
-    assert knn.launch_counts["nn_bidir"] == before["nn_bidir"] + 2
+    assert _cuda.launch_counts["nn_bidir"] == before["nn_bidir"] + 2
 
 
 def test_fps_and_icp_on_card_match_cpu(cuda):
@@ -244,9 +244,9 @@ def test_per_tile_kernel_limit_goes_to_the_accumulator_by_rule_on_card(cuda):
     largest = max(m for m in range(28000, 29500) if knn.plan_bidir(1, 100, m, sms, "nn_bidir"))
     for M, kernel in ((largest, "nn_bidir"), (largest + 1, "nn_bidir_acc")):
         x, y = _tie_clouds(1, 100, M, cuda)
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         got = knn.nn_search_bidirectional(x, y, 1)
-        assert knn.launch_counts[kernel] == before[kernel] + 1
+        assert _cuda.launch_counts[kernel] == before[kernel] + 1
         for a, b in zip(got, knn._nn_bidir_plain(x, y, 1)):
             assert torch.equal(a, b)
     with pytest.raises(ValueError):
@@ -276,9 +276,9 @@ def test_light_kernels_tie_layouts_and_ragged_shapes_on_card(cuda, shape, norm):
     x, y = _tie_clouds(S, N, M, cuda)
     refs = {"nn": knn._nn_plain(x, y, norm), "nn_min_bidir": knn._nn_min_bidir_plain(x, y, norm)}
     for plan in _light_plans(S, N, M, _sms(cuda)):
-        before = knn.launch_counts[plan.kernel]
+        before = _cuda.launch_counts[plan.kernel]
         got = knn._launch_sweep(x, y, norm, plan)
-        assert knn.launch_counts[plan.kernel] == before + 1
+        assert _cuda.launch_counts[plan.kernel] == before + 1
         for a, b in zip(got, refs[plan.kernel], strict=True):
             assert a.dtype == b.dtype and torch.equal(a, b), plan
         assert not bool(torch.signbit(got[0]).any())
@@ -378,12 +378,12 @@ def test_refine_chain_on_card_matches_cpu(cuda):
     from autourdf_tpu_torch.joints.chain import refine_chain
 
     links, joints, cms, frames = _hinge_chain_inputs()
-    before = dict(knn.launch_counts)
+    before = dict(_cuda.launch_counts)
     out = {d: refine_chain(links, joints, cms, frames, steps=50, points_per_link=256, device=d)[1]
            for d in ("cpu", cuda)}
-    assert knn.launch_counts["nn_bidir_acc"] + knn.launch_counts["nn_bidir"] \
+    assert _cuda.launch_counts["nn_bidir_acc"] + _cuda.launch_counts["nn_bidir"] \
         >= before["nn_bidir_acc"] + before["nn_bidir"] + 50
-    assert knn.launch_counts["nn_min_bidir"] >= before["nn_min_bidir"] + 2   # the freeze probe
+    assert _cuda.launch_counts["nn_min_bidir"] >= before["nn_min_bidir"] + 2   # the freeze probe
     a, b = out[cuda], out["cpu"]
     np.testing.assert_allclose(a.step_losses, b.step_losses, rtol=1e-4)
     for f in ("axes", "origins", "thetas", "freeze_deltas"):
@@ -546,10 +546,10 @@ def test_graphed_registration_equals_eager_on_card(cuda, masked):
                       ("fused", lambda: register_sequences_fused(
                            model, cfg, params, params, init, ft, mt))):
         for _ in range(2):      # the first graphed call captures, the second only replays
-            before = dict(knn.launch_counts)
+            before = dict(_cuda.launch_counts)
             out[name] = run()
             torch.cuda.synchronize()
-            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+            launched[name] = {k: _cuda.launch_counts[k] - before[k] for k in before}
     for name in ("batched", "fused"):
         for f in out["eager"]._fields:
             assert torch.equal(getattr(out[name], f), getattr(out["eager"], f)), (name, f)
@@ -567,10 +567,10 @@ def test_graphed_chain_fit_equals_eager_on_card(cuda):
     res, launched = {}, {}
     for name, kw in (("eager", dict(eager=True)), ("graphed", dict(dispatch_steps=25)),
                      ("replayed", dict(dispatch_steps=25))):
-        before = dict(knn.launch_counts)
+        before = dict(_cuda.launch_counts)
         res[name] = refine_chain(links, joints, cms, frames, steps=60, points_per_link=256,
                                  device=cuda, **kw)[1]
-        launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+        launched[name] = {k: _cuda.launch_counts[k] - before[k] for k in before}
     for name in ("graphed", "replayed"):
         for f in ("axes", "origins", "thetas", "step_losses", "freeze_deltas"):
             np.testing.assert_array_equal(getattr(res[name], f), getattr(res["eager"], f),
@@ -585,13 +585,13 @@ def test_program_launch_counts_on_card(cuda):
 
     x, y = _clouds(2, 700, 333, True, cuda)
     prog = programs.Program(lambda a, b: knn.nn_search_bidirectional(a, b, 1), "search")
-    before = dict(knn.launch_counts)
+    before = dict(_cuda.launch_counts)
     for i in range(7):
         got = prog(x + i, y)
         ref = knn._nn_bidir_plain(x + i, y, 1)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-    assert knn.launch_counts["nn_bidir"] - before["nn_bidir"] == 7
+    assert _cuda.launch_counts["nn_bidir"] - before["nn_bidir"] == 7
     assert prog.stats["launches"] == {"nn_bidir": 1} and prog.stats["capture_s"] > 0
 
 
@@ -647,9 +647,9 @@ def test_fps_kernel_matches_plain_on_card(cuda, case):
 
     pts, mask = _fps_case(case)
     p, m = pts.to(cuda), None if mask is None else mask.to(cuda)
-    before = knn.launch_counts["fps"]
+    before = _cuda.launch_counts["fps"]
     got = fps.farthest_point_sample(p, 400, m)
-    assert knn.launch_counts["fps"] == before + 1
+    assert _cuda.launch_counts["fps"] == before + 1
     assert got.dtype == torch.int64 and got.is_cuda
     assert torch.equal(got, fps._fps_plain(p, 400, m))
     if case == "none_valid":
@@ -685,9 +685,9 @@ def test_kabsch3_kernel_on_card(cuda, B):
     from torch_geom_models import kabsch3_model
 
     H, kind, _ = _cross_covariances(B, 30 + B)
-    before = knn.launch_counts["kabsch3"]
+    before = _cuda.launch_counts["kabsch3"]
     R = icp.kabsch_rotation(H.to(cuda))
-    assert knn.launch_counts["kabsch3"] == before + 1
+    assert _cuda.launch_counts["kabsch3"] == before + 1
     ref = icp._kabsch_rotation_plain(H.to(cuda))
     good = torch.from_numpy(kind == 0).to(cuda)
     assert float((R - ref).abs()[good].max()) <= 1e-5
@@ -717,9 +717,9 @@ def test_sym_eig3_min_kernel_on_card(cuda, n):
     nb = pts[torch.topk(d, 30, largest=False).indices][:n]
     c = nb - nb.mean(1, keepdim=True)
     C = torch.einsum("nki,nkj->nij", c, c)
-    before = knn.launch_counts["sym_eig3_min"]
+    before = _cuda.launch_counts["sym_eig3_min"]
     v = plane.smallest_eigenvector(C.to(cuda))
-    assert knn.launch_counts["sym_eig3_min"] == before + 1
+    assert _cuda.launch_counts["sym_eig3_min"] == before + 1
     ref = plane._smallest_eigenvector_plain(C.to(cuda))
     e = torch.linalg.eigvalsh(C.double())
     sep = ((e[:, 1] - e[:, 0]) > 0.1 * e[:, 1]).to(cuda)
@@ -732,27 +732,33 @@ def test_sym_eig3_min_kernel_on_card(cuda, n):
 @pytest.mark.parametrize("masked", [False, True])
 def test_graphed_icp_equals_eager_on_card(cuda, masked):
     """icp_point_to_point as a program (captured, then replayed on other
-    inputs) gives its eager loop's transforms, fitness and RMSE bit for bit,
-    with the same launches."""
+    inputs and at other thresholds) gives its eager loop's transforms,
+    fitness and RMSE bit for bit, with the same launches; one capture serves
+    every threshold."""
     from autourdf_tpu_torch.ops import icp
+    from autourdf_tpu_torch.utils import programs
 
     rng = np.random.default_rng(5)
     src = torch.from_numpy(rng.normal(scale=0.1, size=(6, 700, 3)).astype(np.float32)).to(cuda)
     tgt = src.flip(1) + torch.tensor([0.01, -0.02, 0.015], device=cuda)
-    kw = dict(max_iterations=20, threshold=0.3)
+    kw = dict(max_iterations=20)
     if masked:
         kw.update(source_mask=torch.from_numpy(rng.random((6, 700)) > 0.1).to(cuda),
                   target_mask=torch.from_numpy(rng.random((6, 700)) > 0.1).to(cuda))
-    for shift in (0.0, 0.005, 0.01):
-        before = dict(knn.launch_counts)
+    programs.clear()
+    captured = len(programs.captures)
+    for shift, threshold in ((0.0, 0.3), (0.005, 0.05), (0.01, 0.3)):
+        kw["threshold"] = threshold
+        before = dict(_cuda.launch_counts)
         a = icp.icp_point_to_point(src, tgt + shift, **kw)
-        mid = dict(knn.launch_counts)
+        mid = dict(_cuda.launch_counts)
         b = icp.icp_point_to_point(src, tgt + shift, eager=True, **kw)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
         assert {k: mid[k] - before[k] for k in mid} == \
-            {k: knn.launch_counts[k] - mid[k] for k in mid}
-        assert knn.launch_counts["kabsch3"] - mid["kabsch3"] == 20
+            {k: _cuda.launch_counts[k] - mid[k] for k in mid}
+        assert _cuda.launch_counts["kabsch3"] - mid["kabsch3"] == 20
+    assert len(programs.captures) == captured + 1
 
 
 def test_graphed_registration_with_mlp_icp_and_normals_equals_eager_on_card(cuda, monkeypatch):
@@ -781,10 +787,10 @@ def test_graphed_registration_with_mlp_icp_and_normals_equals_eager_on_card(cuda
                       ("fused", lambda: register_sequences_fused(
                            model, cfg, params, params, init, ft, mt))):
         for _ in range(2):
-            before = dict(knn.launch_counts)
+            before = dict(_cuda.launch_counts)
             out[name] = run()
             torch.cuda.synchronize()
-            launched[name] = {k: knn.launch_counts[k] - before[k] for k in before}
+            launched[name] = {k: _cuda.launch_counts[k] - before[k] for k in before}
     for name in ("batched", "fused"):
         for f in out["eager"]._fields:
             assert torch.equal(getattr(out[name], f), getattr(out["eager"], f)), (name, f)

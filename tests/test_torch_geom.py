@@ -39,6 +39,7 @@ from autourdf_tpu_torch.registration import (
     register_sequences_batched,
     register_sequences_fused,
 )
+from autourdf_tpu_torch.utils import programs
 from torch_geom_models import fps_model, kabsch3_model, sym_eig3_min_model
 
 T_ = torch.from_numpy
@@ -274,17 +275,43 @@ def test_icp_program_equals_the_eager_loop(masked):
     assert one.transform.shape == (4, 4) and torch.equal(one.transform, ref.transform)
 
 
+def test_icp_program_serves_every_threshold():
+    """The threshold and the relative criteria are inputs of the ICP's
+    program, not parts of its key: ICPs of one shape at other thresholds
+    (the chain fit's polish works one out for each link) share one program,
+    and each gives its own eager loop's result bit for bit."""
+    src, tgt, sm, tm = _icp_batch(4)
+    programs.clear()
+    for threshold, rel in ((0.2, 1e-6), (0.05, 1e-6), (0.013, 1e-4)):
+        kw = dict(max_iterations=9, threshold=threshold, relative_rmse=rel, relative_fitness=rel,
+                  source_mask=T_(sm), target_mask=T_(tm))
+        a = ticp.icp_point_to_point(T_(src), T_(tgt), **kw)
+        b = ticp.icp_point_to_point(T_(src), T_(tgt), eager=True, **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert len(programs._cache) == 1
+    assert not torch.equal(a.fitness, ticp.icp_point_to_point(
+        T_(src), T_(tgt), max_iterations=9, threshold=0.2, source_mask=T_(sm),
+        target_mask=T_(tm)).fitness)
+
+
 def test_masked_icp_clusters_program_equals_eager():
+    """``masked_icp_clusters`` runs its ICP as the plain loop, so it can be
+    the body of the registration's ICP-phase program: in a program it gives
+    the plain call's poses bit for bit, on the first call and on a replay."""
     rng = np.random.default_rng(12)
     pts = rng.normal(scale=0.05, size=(2, 180, 3)).astype(np.float32)
     labels = np.tile(np.repeat(np.arange(3), 60), (2, 1))
     mats = np.tile(np.eye(4, dtype=np.float32), (2, 3, 1, 1))
     mats[:, :, :3, 3] = [[-0.3, 0, 0], [0, 0.1, 0], [0.3, 0, 0.1]]
     target = (pts + mats[0, labels[0], :3, 3] + rng.normal(0, 0.004, pts.shape)).astype(np.float32)
-    args = (T_(pts), T_(labels).long(), T_(mats), T_(target), 3)
-    a = ticp.masked_icp_clusters(*args, max_iterations=6)
-    b = ticp.masked_icp_clusters(*args, max_iterations=6, eager=True)
-    assert torch.equal(a, b)
+    programs.clear()
+    for shift in (0.0, 0.005):
+        args = (T_(pts), T_(labels).long(), T_(mats), T_(target + shift))
+        a = programs.run(("masked_icp", 3, 6),
+                         lambda *x: ticp.masked_icp_clusters(*x, 3, max_iterations=6), *args)
+        b = ticp.masked_icp_clusters(*args, 3, max_iterations=6)
+        assert torch.equal(a, b)
 
 
 S, T, K, H = 2, 3, 4, 32
