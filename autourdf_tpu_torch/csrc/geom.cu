@@ -15,24 +15,51 @@
 // steps of four or five kernels each, so none of them could sit inside a
 // captured program (utils/programs.py) before.
 //
-// fps_kernel: the whole pick in one launch of one block.  Each of the k
-// steps is a pass over the points (the running minimum squared distance to
-// the picks, then its argmax) and a block-wide reduction, so the steps are
-// bound by the block's two barriers and its reads of the cloud from L2, not
-// by the card's rates: one block of 1,024 threads a cloud, each point packed
-// as a float4 with its running minimum in the fourth lane, in device memory
-// (16 bytes a point: the 184,354 visible points of an 800-pixel capture of
-// the wx200 are 2.9 MB, resident in L2), read once a step and written only
-// where the minimum falls.  The argmax is a maximum of
-// 64-bit keys, the distance's bits (non-negative, so ordered as unsigned)
-// above the complement of the index, so that equal distances go to the
-// first index as torch.argmax's do.  A mask is applied once, by a stable
-// compaction of the valid points into the scratch cloud at the start; the
-// picks are mapped back to the caller's indices.  The distance rounds as
-// the plain version's torch.sum((p - q) ** 2, dim=1) does on the card
-// (fps_dist below) under -fmad=false, so the picks are the plain
-// version's, bit for bit.  A cluster of blocks holding the cloud in
-// distributed shared memory is later work.
+// fps_kernel: the whole pick in one launch of one cluster of 16 blocks
+// (1,024 threads each, on 16 SMs).  Each of the k steps is a pass over the
+// points (the running minimum squared distance to the picks, then its
+// argmax) and a reduction across the cluster, so a step is bound by the
+// reads of the points and the synchronisation, not by the card's rates.
+//   - Ownership by original index: block b owns indices [b R, (b + 1) R),
+//     R = ceil(n / 16), and compacts its valid points stably into its own
+//     shared memory at the start, each as a float4 (x, y, z, running
+//     minimum at +inf), with its offset in the range beside it as 16 bits
+//     (where R <= 65,536).  Up to about 12,900 points a block stay in shared
+//     memory (227 KB): the 184,354 visible points of an 800-pixel capture
+//     of the wx200 need at most 12,500.  The rest of a larger range stays in
+//     the global scratch `work` and is streamed every step, still spread
+//     over the 16 SMs.
+//   - Keys: a point's key is its minimum's bits (non-negative, so ordered
+//     as unsigned) above the complement of its index, and the argmax is the
+//     largest key, so that equal distances go to the first index as
+//     torch.argmax's do; a reduction takes the largest bits, then the
+//     smallest index among them (two redux.sync a warp).  Inside a block
+//     the index is the compact one (the compaction is stable, so its order
+//     is the original one); the block's winner carries its original index
+//     across the cluster.  Masked points never appear, so the largest key
+//     is the plain version's first-index argmax over where(valid, d, -inf),
+//     whatever the partition.  Step 0 is the same reduction with every
+//     minimum at +inf: the first valid point.  With no valid point every
+//     pick is 0, as torch.argmax of all -inf.
+//   - One cluster barrier a step: each block reduces its winner (warps,
+//     then one __syncthreads and warp 0), and warp 0's first 16 lanes push
+//     it, (x, y, z, bits) and the original index, into its slot in every
+//     block's shared memory (distributed shared memory stores, double-
+//     buffered by the step's parity); after barrier.cluster every warp
+//     reads the 16 slots from its own block and takes the largest: the
+//     pick's coordinates need no global read.  A block writes a parity's
+//     slots again only after the next barrier, which every reader of them
+//     has passed.  (Pulling the slots instead, every warp reading the 16
+//     blocks' slots, took 7.8 us a step at a capture's shape on the H100,
+//     against 2.4: 512 remote loads an SM a step.)
+//   - Where the time goes (H100, chip_smoke.py [3]): about 1 us a step
+//     of shared-memory reads (16 bytes a point at 128 bytes a clock), the
+//     rest the step's chain of reductions, barrier and slot reads, whose
+//     floor of one empty cluster barrier is about 0.8 us.
+// The distance rounds as the plain version's torch.sum((p - q) ** 2, dim=1)
+// does on the card (fps_dist below) under -fmad=false, so the picks are the
+// plain version's, bit for bit.  The launch sets the non-portable cluster
+// size and the shared memory once (geom_fps_setup), before any capture.
 //
 // kabsch3_kernel and sym_eig3_min_kernel: one thread a 3x3 matrix, all in
 // registers, fixed sweeps of cyclic Jacobi rotations (no data-dependent
@@ -59,6 +86,7 @@
 //     trigonometric roots, which lose the vector when the two smallest
 //     eigenvalues are close.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,8 +96,17 @@ namespace {
 // farthest-point sampling
 // ---------------------------------------------------------------------------
 
+namespace cg = cooperative_groups;
+
+constexpr int kFpsCluster = 16;    // blocks, one cluster (non-portable size)
 constexpr int kFpsThreads = 1024;
 constexpr int kFpsWarps = kFpsThreads / 32;
+// the largest range whose offsets fit in 16 bits beside the points
+constexpr int kFpsSmallRange = 1 << 16;
+
+// bits of -1.0f: "no point" (as signed ints, below the bits of every
+// non-negative float)
+constexpr int kFpsNone = static_cast<int>(0xbf800000u);
 
 // torch.sum((p - q) ** 2, dim=1) over 3 columns on the card: the reduction
 // gives a row two threads (the largest power of two <= 3), the first summing
@@ -82,36 +119,63 @@ __device__ __forceinline__ float fps_dist(float4 p, float qx, float qy, float qz
   return (xx + zz) + yy;
 }
 
-__device__ __forceinline__ unsigned long long fps_key(float d, int i) {
-  return (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
-         static_cast<unsigned int>(~i);
+// The largest key of a warp, as (bits of the minimum, index): the largest
+// bits (as signed ints, which order non-negative floats and put kFpsNone
+// below them), then the smallest index among them.  Two redux.sync.
+__device__ __forceinline__ void warp_best(int& bits, unsigned& idx) {
+  const int top = __reduce_max_sync(0xffffffffu, bits);
+  idx = __reduce_min_sync(0xffffffffu, bits == top ? idx : 0xffffffffu);
+  bits = top;
 }
 
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
+// One point's step: its running minimum against the last pick (stored where
+// it falls) and the thread's best; strictly greater keeps the first index.
+__device__ __forceinline__ void fps_visit(float4* cloud, int i, float qx, float qy, float qz,
+                                          float& best, int& bi) {
+  const float4 p = cloud[i];
+  const float d = fps_dist(p, qx, qy, qz);
+  if (d < p.w) reinterpret_cast<float*>(cloud)[4 * (size_t)i + 3] = d;
+  const float m = fminf(p.w, d);
+  if (m > best) {
+    best = m;
+    bi = i;
   }
-  return v;
 }
 
 // points (n, 3), mask (n,) or null -> out (k,) int64 indices into points.
-// Scratch: work (n,) float4 (x, y, z, running minimum), orig (n,) int32.
-// One block.
-__global__ void __launch_bounds__(kFpsThreads) fps_kernel(
-    const float* __restrict__ pts, const bool* __restrict__ mask, int n, int k,
-    float4* __restrict__ work, int* __restrict__ orig, int64_t* __restrict__ out) {
+// One cluster of kFpsCluster blocks; block b owns [b range, (b + 1) range)
+// and keeps the first `cap` of its valid points in dynamic shared memory
+// (cap float4, then cap 16-bit offsets where range <= kFpsSmallRange).
+// Scratch: work (n,) float4 for the points beyond cap, orig (n,) int32
+// original indices, both at the block's range.
+__global__ void __launch_bounds__(kFpsThreads, 1) fps_kernel(
+    const float* __restrict__ pts, const bool* __restrict__ mask, int n, int k, int range,
+    int cap, float4* __restrict__ work, int* __restrict__ orig, int64_t* __restrict__ out) {
+  extern __shared__ float4 fps_shared[];
+  // the winners of the cluster's blocks, by step parity and block: (x, y, z,
+  // bits of the minimum) and the original index, written by their blocks
+  __shared__ float4 slot_p[2][kFpsCluster];
+  __shared__ int slot_o[2][kFpsCluster];
+  __shared__ int warp_bits[kFpsWarps];
+  __shared__ unsigned warp_idx[kFpsWarps];
   __shared__ int warp_count[kFpsWarps];
-  __shared__ unsigned long long warp_best[kFpsWarps];
-  __shared__ unsigned long long pick;
+  cg::cluster_group cluster = cg::this_cluster();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = static_cast<int>(cluster.block_rank());
+  const bool small = range <= kFpsSmallRange;
+  float4* sp = fps_shared;
+  unsigned short* soff = reinterpret_cast<unsigned short*>(fps_shared + cap);
+  const long long base = static_cast<long long>(b) * range;
+  const int end = static_cast<int>(base + range < n ? base + range : n);
+  float4* gwork = work + base;
+  int* gorig = orig + base;
 
-  // stable compaction of the valid points, a tile of kFpsThreads at a time
+  // stable compaction of the block's valid points, a tile of kFpsThreads
+  // at a time: the first cap to shared memory, the rest to work
   int count = 0;
-  for (int base = 0; base < n; base += kFpsThreads) {
-    const int i = base + t;
-    const bool valid = i < n && (mask == nullptr || mask[i]);
+  for (long long tile = base; tile < end; tile += kFpsThreads) {
+    const int i = static_cast<int>(tile) + t;
+    const bool valid = i < end && (mask == nullptr || mask[i]);
     const unsigned ballot = __ballot_sync(0xffffffffu, valid);
     if (lane == 0) warp_count[warp] = __popc(ballot);
     __syncthreads();
@@ -123,40 +187,98 @@ __global__ void __launch_bounds__(kFpsThreads) fps_kernel(
     if (valid) {
       const int pos = count + before + __popc(ballot & ((1u << lane) - 1u));
       // the minimum starts at +inf: min(inf, d) = d
-      work[pos] = make_float4(pts[3 * (size_t)i], pts[3 * (size_t)i + 1],
-                              pts[3 * (size_t)i + 2], __int_as_float(0x7f800000));
-      orig[pos] = i;
+      const float4 p = make_float4(pts[3 * (size_t)i], pts[3 * (size_t)i + 1],
+                                   pts[3 * (size_t)i + 2], __int_as_float(0x7f800000));
+      if (pos < cap) {
+        sp[pos] = p;
+        if (small) soff[pos] = static_cast<unsigned short>(i - base);
+      } else {
+        gwork[pos] = p;
+      }
+      gorig[pos] = i;
     }
     count += total;
     __syncthreads();
   }
-  if (count == 0) {                  // no valid point: torch.argmax of all -inf is 0
-    for (int s = t; s < k; s += kFpsThreads) out[s] = 0;
-    return;
+  const int held = count < cap ? count : cap;
+
+  // step 0: every minimum is +inf, so a thread's best is its first point
+  float best = -1.f;
+  int bi = 0;
+  if (t < count) {
+    best = __int_as_float(0x7f800000);
+    bi = t;
   }
-  if (t == 0) out[0] = orig[0];
-  float4 q = work[0];
-  for (int s = 1; s < k; ++s) {
-    unsigned long long best = 0;
-    for (int i = t; i < count; i += kFpsThreads) {
-      const float4 p = work[i];
-      const float d = fps_dist(p, q.x, q.y, q.z);
-      if (d < p.w) reinterpret_cast<float*>(work)[4 * (size_t)i + 3] = d;
-      const unsigned long long key = fps_key(fminf(p.w, d), i);
-      best = key > best ? key : best;
+  float qx = 0.f, qy = 0.f, qz = 0.f;   // the last pick
+  for (int s = 0; s < k; ++s) {
+    if (s > 0) {
+      best = -1.f;
+      for (int i = t; i < held; i += kFpsThreads) fps_visit(sp, i, qx, qy, qz, best, bi);
+      for (int i = cap + t; i < count; i += kFpsThreads) fps_visit(gwork, i, qx, qy, qz, best, bi);
     }
-    best = warp_max(best);
-    if (lane == 0) warp_best[warp] = best;
+    // the block's winner (compact index), then warp 0 pushes it, with its
+    // coordinates and original index, into this step's slot of every block
+    int bits = __float_as_int(best);
+    unsigned idx = static_cast<unsigned>(bi);
+    warp_best(bits, idx);
+    if (lane == 0) {
+      warp_bits[warp] = bits;
+      warp_idx[warp] = idx;
+    }
     __syncthreads();
+    const int par = s & 1;
     if (warp == 0) {
-      best = warp_max(lane < kFpsWarps ? warp_best[lane] : 0ull);
-      if (lane == 0) pick = best;
+      bits = warp_bits[lane];
+      idx = warp_idx[lane];
+      warp_best(bits, idx);
+      float4 p = make_float4(0.f, 0.f, 0.f, __int_as_float(kFpsNone));
+      int o = 0;
+      if (bits != kFpsNone) {
+        const int j = static_cast<int>(idx);
+        const bool shared = j < cap;
+        p = shared ? sp[j] : gwork[j];
+        p.w = __int_as_float(bits);
+        o = shared && small ? static_cast<int>(base) + soff[j] : gorig[j];
+      }
+      if (lane < kFpsCluster) {
+        *cluster.map_shared_rank(&slot_p[par][b], lane) = p;
+        *cluster.map_shared_rank(&slot_o[par][b], lane) = o;
+      }
     }
-    __syncthreads();
-    const int next = static_cast<int>(~static_cast<unsigned int>(pick & 0xffffffffull));
-    q = work[next];
-    if (t == 0) out[s] = orig[next];
+    cluster.sync();
+    // every warp takes the largest of the 16 slots, now in its own block
+    int o = -1;
+    bits = kFpsNone;
+    if (lane < kFpsCluster) {
+      bits = __float_as_int(slot_p[par][lane].w);
+      o = slot_o[par][lane];
+    }
+    int top = bits;
+    unsigned pick = static_cast<unsigned>(o);
+    warp_best(top, pick);
+    if (top == kFpsNone) {             // no valid point: torch.argmax of all -inf is 0
+      if (b == 0) {
+        for (int i = t; i < k; i += kFpsThreads) out[i] = 0;
+      }
+      break;
+    }
+    const int src = __ffs(__ballot_sync(0xffffffffu, bits == top && o == static_cast<int>(pick))) - 1;
+    const float4 q = slot_p[par][src];
+    qx = q.x;
+    qy = q.y;
+    qz = q.z;
+    if (b == 0 && t == 0) out[s] = static_cast<int64_t>(pick);
   }
+  // no block leaves while another may still write to its slots
+  cluster.sync();
+}
+
+// k cluster barriers and nothing else, in fps_kernel's launch shape: the
+// floor under a pick of k steps that synchronises once a step (a
+// measurement for chip_smoke.py [3]; no path launches it)
+__global__ void __launch_bounds__(kFpsThreads, 1) cluster_barriers_kernel(int k) {
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int s = 0; s < k; ++s) cluster.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -338,13 +460,107 @@ __global__ void __launch_bounds__(kJacobiThreads) sym_eig3_min_kernel(
 // C interface (ctypes, ops/_cuda.py); each returns the launch's cudaError_t
 // ---------------------------------------------------------------------------
 
+namespace {
+// fps_kernel's dynamic shared memory limit, set by geom_fps_setup
+int g_fps_shared_max = -1;
+
+// one cluster of kFpsCluster blocks of kFpsThreads; `cluster` must outlive
+// the config
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& cluster, int shared_bytes,
+                                  void* stream) {
+  cluster = cudaLaunchAttribute{};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kFpsCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(kFpsCluster);
+  cfg.blockDim = dim3(kFpsThreads);
+  cfg.dynamicSmemBytes = shared_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+}  // namespace
+
+// fps_kernel's shared plan for n points: returns the dynamic shared bytes a
+// block and sets *cap, the points a block holds in shared memory (-1 before
+// geom_fps_setup)
+extern "C" int geom_fps_plan(int n, int* cap) {
+  if (g_fps_shared_max < 0 || n <= 0) return -1;
+  const int range = (n + kFpsCluster - 1) / kFpsCluster;
+  const bool small = range <= kFpsSmallRange;
+  int c = g_fps_shared_max / (small ? 18 : 16);
+  c = c < range ? c : range;
+  for (;;) {
+    const int bytes = 16 * c + (small ? (2 * c + 15) / 16 * 16 : 0);
+    if (bytes <= g_fps_shared_max) {
+      *cap = c;
+      return bytes;
+    }
+    --c;
+  }
+}
+
+// Once a process, before the first launch and outside any capture: allow
+// the non-portable cluster size and all of a block's opt-in shared memory,
+// then ask how many such clusters the card can hold at once (0: the launch
+// could never run).  Returns the cudaError_t; sets the clusters, the
+// dynamic shared limit, the kernel's registers a thread and its local
+// (spilled) bytes a thread.
+extern "C" int geom_fps_setup(int* max_clusters, int* shared_max, int* regs, int* local_bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fps_kernel);
+  const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cluster_barriers_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, dyn, nullptr);
+  err = cudaOccupancyMaxActiveClusters(max_clusters, fps_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g_fps_shared_max = dyn;
+  *shared_max = dyn;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
 // points (n, 3) f32, mask (n,) bool or null -> out (k,) int64; work (n,)
-// float4 and orig (n,) int32 are scratch.  One launch.
+// float4 and orig (n,) int32 are scratch.  One launch of one cluster.
 extern "C" int geom_fps_launch(const float* points, const bool* mask, int n, int k,
                                void* work, int* orig, int64_t* out, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  fps_kernel<<<1, kFpsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, mask, n, k, static_cast<float4*>(work), orig, out);
+  int cap = 0;
+  const int bytes = geom_fps_plan(n, &cap);
+  if (bytes < 0) return (int)cudaErrorInitializationError;   // geom_fps_setup first
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, bytes, stream);
+  const int range = (n + kFpsCluster - 1) / kFpsCluster;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fps_kernel, points, mask, n, k, range, cap,
+                                       static_cast<float4*>(work), orig, out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// k empty cluster barriers in fps_kernel's launch shape (after
+// geom_fps_setup)
+extern "C" int geom_cluster_barriers_launch(int k, void* stream) {
+  if (k <= 0 || g_fps_shared_max < 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, 0, stream);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_barriers_kernel, k);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -59,7 +59,10 @@ _SIGNATURES = {
                                   _P], _I),
     },
     "geom": {
+        "geom_fps_setup": ([_P, _P, _P, _P], _I),
+        "geom_fps_plan": ([_I, _P], _I),
         "geom_fps_launch": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
+        "geom_cluster_barriers_launch": ([_I, _P], _I),
         "geom_kabsch3_launch": ([_P, _P, _I, _P], _I),
         "geom_sym_eig3_min_launch": ([_P, _P, _I, _P], _I),
     },

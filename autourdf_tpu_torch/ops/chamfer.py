@@ -83,21 +83,27 @@ def _gather_points(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_add_points(like: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``zeros_like(like).at[idx].add(vals)`` per batch element.
+    """``zeros_like(like).at[idx].add(vals)`` per batch element, summing
+    each target's values in their order, so the sums are the same every run.
 
-    ``index_put_`` with ``accumulate=True`` sorts the indices and sums each
-    target's values in their order, on the card as on the CPU, so the sums
-    are the same every run (``index_add_`` on the card adds with float
-    atomics in arrival order, and a registration would vary run to run).
-    It is called without the range check (``unsafe``): on the card that
-    check reads the indices' extremes back to the host, which a captured
-    program cannot do; the indices are a search's, in range by construction.
-    The same sorted kernel runs either way."""
+    On the card ``index_put_`` with ``accumulate=True`` sorts the indices
+    first (``index_add_`` there adds with float atomics in arrival order, and
+    a registration would vary run to run); it is called without the range
+    check (``unsafe``), which on the card reads the indices' extremes back to
+    the host and so cannot sit in a captured program; the indices are a
+    search's, in range by construction.  On the CPU that same call adds with
+    atomics across threads (ATen's ``index_put_kernel``, with more than one
+    intra-op thread and 32,768 values or more), so the CPU takes
+    ``scatter_add_``, which adds a target's values in index order whatever
+    the thread count: the sums of ``index_put_`` on one thread."""
     S, n = like.shape[0], like.shape[1]
     offs = torch.arange(S, device=idx.device)[:, None] * n
     out = torch.zeros((S * n, 3), dtype=like.dtype, device=like.device)
-    torch.ops.aten._index_put_impl_(out, ((idx + offs).reshape(-1),), vals.reshape(-1, 3),
-                                    True, True)
+    flat = (idx + offs).reshape(-1)
+    if like.is_cuda:
+        torch.ops.aten._index_put_impl_(out, (flat,), vals.reshape(-1, 3), True, True)
+    else:
+        out.scatter_add_(0, flat[:, None].expand(-1, 3), vals.reshape(-1, 3))
     return out.view(S, n, 3)
 
 

@@ -31,13 +31,19 @@ Phases, each of which fails the run on error:
    kernel also at the carry test's and at a link-ICP shape, and the
    one-directional (squared L2) and min-only (L1) kernels at the evaluation's
    re-simulation shape, S=1, N=M=10,000; then the three geometry kernels of
-   ``csrc/geom.cu`` against their plain versions: ``fps_kernel`` (identical
-   picks at a capture's real visible set of [11]'s robot, masked and
-   compacted, k = 5,000; at 10,000 of 10,000 points; on 100,000 points with
-   a duplicated block and a mask; with fewer valid points than k and with
-   none), ``kabsch3_kernel`` (B = 100, 5, 18, 1: 1e-5 on well-conditioned
-   H, exactly I at H = 0, proper rotations at rank 1 and 2 and for
-   reflected H, whose error is printed but not bounded)
+   ``csrc/geom.cu`` against their plain versions: ``fps_kernel`` (its
+   cluster of 16 blocks, shared bytes, registers and spills printed;
+   identical picks at a capture's real visible set of [11]'s robot, masked
+   and compacted, k = 5,000; at 10,000 of 10,000 points; on 100,000 points
+   with a duplicated block and a mask; with fewer valid points than k and
+   with none; on 400,003 points, beyond the blocks' shared memory; on
+   1,100,003 points, ranges past 16-bit offsets; on fewer points than
+   blocks; with one pick; with k above a valid count spread over the
+   blocks; with every valid point in one block's range; timed at the
+   dataset's and the evaluation's capture shapes beside its step skeleton
+   and k empty cluster barriers), ``kabsch3_kernel`` (B = 100, 5, 18, 1:
+   1e-5 on well-conditioned H, exactly I at H = 0, proper rotations at rank
+   1 and 2 and for reflected H, whose error is printed but not bounded)
    and ``sym_eig3_min_kernel`` (30-neighbour covariances of one real frame
    and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest
    eigenvalues are 10% apart, unit norm to 1e-6), each timed beside its
@@ -200,6 +206,13 @@ CLOSED_LOOP_SEQS, CLOSED_LOOP_FRAMES, CLOSED_LOOP_POINTS = 5, 10, 5000
 # rotated 36; the column order 30, the Givens QR 126, R = V U^T 45); an
 # eigenvector (18 two-sided steps of 42, the normalisation 12)
 FPS_OPS_PER_POINT = 10
+# [3]: a cloud whose 16 blocks' ranges (25,001 points each) overflow their
+# shared memory (about 12,900 points a block), so every block streams the
+# rest; and one whose ranges (68,751) pass 16-bit offsets, so the winners'
+# original indices come from device memory
+FPS_OVERFLOW_N, FPS_WIDE_N = 400003, 1100003
+# picks of an evaluation capture (400 px), timed beside the dataset's
+FPS_EVAL_POINTS = 10000
 KABSCH_OPS_PER_MATRIX = 18 * 64 + 30 + 126 + 45
 EIG_OPS_PER_MATRIX = 18 * 42 + 12
 
@@ -935,6 +948,46 @@ def _check_fps_and_icp(dev) -> None:
         _fail("fps or ICP on the card disagrees with the CPU path")
 
 
+def _fps_times(dev, points: torch.Tensor, mask: torch.Tensor, k: int) -> dict:
+    """fps_kernel on ``points`` under ``mask`` with ``k`` picks: wrapper ms
+    (CUDA events, median of 10) and device ms (torch.profiler); in the same
+    launch shape, the device ms of the step skeleton (16 points, one a
+    block: every step's reductions, barrier and slot reads with no point
+    work) and the ms of k empty cluster barriers (CUDA events), the floor of
+    a pick that synchronises once a step; printed."""
+    from autourdf_tpu_torch.ops import _cuda, fps
+
+    lib = _cuda.library("geom")
+
+    def barriers():
+        _cuda.check(lib.geom_cluster_barriers_launch(k, _cuda.stream(points)), "barriers")
+
+    one_each = points[:: max(1, points.shape[0] // fps.CLUSTER_BLOCKS)][:fps.CLUSTER_BLOCKS]
+    out = dict(ms=_time_ms(lambda: fps.farthest_point_sample(points, k, mask), reps=10, warm=2),
+               device_ms=_device_ms(lambda: fps.farthest_point_sample(points, k, mask), reps=5),
+               skeleton_ms=_device_ms(lambda: fps.farthest_point_sample(one_each, k), reps=5),
+               barrier_floor_ms=_time_ms(barriers, reps=10, warm=2))
+    n_valid = int(mask.sum())
+    print(f"  time fps     N={points.shape[0]} ({n_valid} valid) k={k}: wrapper {out['ms']:.4f} "
+          f"ms, device {out['device_ms']:.4f} ms ({out['device_ms'] / k * 1e3:.3f} us a step); "
+          f"the step skeleton (16 points) {out['skeleton_ms']:.4f} ms, {k} empty cluster "
+          f"barriers {out['barrier_floor_ms']:.4f} ms ({out['barrier_floor_ms'] / k * 1e3:.3f} us "
+          f"a barrier)")
+    return out
+
+
+def _ptxas_lines(log: str, kernel: str) -> list[str]:
+    """ptxas' lines (``-Xptxas -v``) for the functions whose mangled name
+    holds ``kernel``: properties, spills, registers."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            keep = kernel in ln
+        if keep:
+            out.append(ln.strip())
+    return out
+
+
 def _cross_covariances(B: int, seed: int) -> tuple[torch.Tensor, np.ndarray]:
     """``(B, 3, 3)`` float32 matrices, by ``kind``: 0 well-conditioned
     (sigma_2 - sigma_3 > 1e-3 sigma_1), 1 the same reflected (det < 0), 2
@@ -977,23 +1030,41 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
     eigenvector (|dot| > 1 - 1e-4 where separated, unit norm to 1e-6)
     against their plain versions on the card, then their times at the main
     path's shapes.  ``frame`` is one real scan (its valid points)."""
-    from autourdf_tpu_torch.ops import fps, icp, plane
+    from autourdf_tpu_torch.ops import _cuda, fps, icp, plane
     from autourdf_tpu_torch.sim import KinematicEnv
     from autourdf_tpu_torch.sim.capture import visible_mask
 
-    # -- fps_kernel: identical picks
+    # -- fps_kernel: the cluster, then identical picks
+    setup = fps.cluster_setup(dev)
+    print(f"  fps_kernel: one cluster of {fps.CLUSTER_BLOCKS} blocks x {fps.BLOCK_THREADS} "
+          f"threads; the card holds {setup.max_clusters} such clusters at once; dynamic shared "
+          f"memory up to {setup.shared_max} bytes a block; {setup.registers} registers a "
+          f"thread, {setup.local_bytes} local bytes (cudaFuncGetAttributes); ptxas:")
+    for ln in _ptxas_lines(_cuda.build_logs.get("geom", ""), "fps_kernel"):
+        print(f"    {ln}")
+    if setup.local_bytes:
+        _fail(f"fps_kernel spills: {setup.local_bytes} local bytes a thread")
     env = KinematicEnv.create(os.path.join(REPO, WX200_ESTIMATE), dof=5, radius=1.5,
                               num_cameras=20, camera_rng=np.random.default_rng(0), device=dev)
     env.set_joint_positions(np.array([0.3, -0.2, 0.4, 0.1, -0.3]))
     surface = torch.from_numpy(env.posed_surface_points()).to(dev)
     vis = visible_mask(surface, env.rig, 800, 800).any(0)
     vis_idx = torch.nonzero(vis)[:, 0]
+    vis400 = visible_mask(surface, env.rig, 400, 400).any(0)
     rng = np.random.default_rng(12)
     uniform = torch.from_numpy(rng.uniform(-0.3, 0.3, (100000, 3)).astype(np.float32)).to(dev)
     uniform[50000:52000] = uniform[:2000]                  # a duplicated block: equal scores
     half = torch.from_numpy(rng.random(100000) > 0.5).to(dev)
     few = torch.zeros(100000, dtype=torch.bool, device=dev)
     few[[11, 4000, 4001, 70000, 99999]] = True
+    big = torch.from_numpy(rng.uniform(-0.3, 0.3, (FPS_OVERFLOW_N, 3)).astype(np.float32)).to(dev)
+    big[200000:203000] = big[:3000]
+    one_block = torch.zeros(100000, dtype=torch.bool, device=dev)
+    block = -(-100000 // fps.CLUSTER_BLOCKS)
+    one_block[7 * block:8 * block] = True                  # all of block 7's range, no other
+    spread = torch.from_numpy(np.arange(100000) % 997 == 3).to(dev)
+    wide = torch.from_numpy(rng.uniform(-0.3, 0.3, (FPS_WIDE_N, 3)).astype(np.float32)).to(dev)
+    wide_mask = torch.from_numpy(rng.random(FPS_WIDE_N) > 0.3).to(dev)
     cases = [
         ("capture's visible set, masked", surface, CLOSED_LOOP_POINTS, vis,
          lambda: vis_idx[fps._fps_plain(surface[vis_idx], CLOSED_LOOP_POINTS)]),
@@ -1002,6 +1073,12 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
         ("100,000 uniform, duplicates, mask", uniform, 1000, half, None),
         ("fewer valid than k", uniform, 50, few, None),
         ("no valid point", uniform, 20, torch.zeros_like(few), None),
+        ("beyond shared memory (every block streams)", big, 2000, None, None),
+        ("ranges past 16-bit offsets", wide, 100, wide_mask, None),
+        ("fewer points than blocks", uniform[:11], 30, None, None),
+        ("one pick", uniform, 1, half, None),
+        ("k above the valid count, spread over the blocks", uniform, 200, spread, None),
+        ("every valid point in one block's range", uniform, 500, one_block, None),
     ]
     fps_err = 0.0                       # the largest difference of two picked indices
     for label, pts, k, mask, plain in cases:
@@ -1010,8 +1087,10 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
         same = torch.equal(got, ref)
         if got.shape == ref.shape:
             fps_err = max(fps_err, float((got - ref).abs().max()))
+        cap, nbytes = fps.shared_plan(dev, pts.shape[0])
         print(f"  fps          {label}: N={pts.shape[0]}, valid "
-              f"{pts.shape[0] if mask is None else int(mask.sum())}, k={k}: picks equal {same}")
+              f"{pts.shape[0] if mask is None else int(mask.sum())}, k={k}: picks equal {same} "
+              f"({cap} points, {nbytes} dynamic shared bytes a block)")
         if not same:
             _fail(f"fps_kernel disagrees with its plain version ({label})")
 
@@ -1072,14 +1151,18 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
         t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
         return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
+    fps_eval = _fps_times(dev, surface, vis400, FPS_EVAL_POINTS)
+    fps_eval["shape"] = f"N={P} ({int(vis400.sum())} visible) k={FPS_EVAL_POINTS}"
+    fps_eval["bound_ms"] = bound((FPS_EVAL_POINTS - 1) * int(vis400.sum()) * FPS_OPS_PER_POINT,
+                                 P * (12 + 1) + FPS_EVAL_POINTS * 8)[0]
     timing = {
         "fps": dict(
-            ms=_time_ms(lambda: fps.farthest_point_sample(surface, k, vis), reps=5, warm=1),
-            device_ms=_device_ms(lambda: fps.farthest_point_sample(surface, k, vis), reps=3),
+            **_fps_times(dev, surface, vis, k),
             plain_ms=_time_ms(lambda: fps._fps_plain(surface, k, vis), reps=2, warm=1),
             library_ms=None,
             bound=bound((k - 1) * n_vis * FPS_OPS_PER_POINT, P * (12 + 1) + k * 8),
-            shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=fps_err),
+            shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=fps_err,
+            at_eval_shape=fps_eval),
         "kabsch3": dict(
             ms=_time_ms(lambda: icp.kabsch_rotation(H)),
             device_ms=_device_ms(lambda: icp.kabsch_rotation(H)),
@@ -2434,9 +2517,11 @@ SAME_DRAW_RECORD = os.path.join("tests", "data", "same_draw_wx200_real_5_seed0.n
 # any sequence) between the port and the JAX package, both on the CPU from
 # the record's draw, over two runs of the slow test of
 # tests/test_torch_same_draw.py: 0.05471 and 0.06285, both sequence V0003's
-# anchor phase (the port's CPU results at this size differ between runs,
-# even between two calls in one process, in their last bits, and the
-# parting amplifies that); the other four sequences part by at most 3.7e-3.
+# anchor phase (the port's CPU results at this size then differed between
+# runs in their last bits, even between two calls in one process: the
+# Chamfer backward's accumulating index_put_ adds with atomics across CPU
+# threads, since replaced by scatter_add_ there; the parting amplifies such
+# bits); the other four sequences part by at most 3.7e-3.
 # The card's arithmetic is another order of the same sums, a draw of the
 # same amplification of round-off, so it may part as far; the factor leaves
 # room for that, and the card fails beyond three times the CPU's worst.
@@ -2963,6 +3048,9 @@ def main() -> int:
             kernels[-1]["at_chain_shape"] = chain_shape[kname]
         if kname in resim_shape:
             kernels[-1]["at_resim_shape"] = resim_shape[kname]
+        for extra in ("skeleton_ms", "barrier_floor_ms", "at_eval_shape"):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
         if kernels[-1]["launches"] < 1:
             _fail(f"kernel {kname} was launched on no path")
     for k in kernels:

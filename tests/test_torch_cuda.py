@@ -615,15 +615,30 @@ def test_program_that_waits_on_the_host_raises_on_card(cuda):
 # the geometry kernels (csrc/geom.cu) and the programs they make possible
 # ---------------------------------------------------------------------------
 
+# case -> (points, picks): the cloud beyond a block's shared capacity (every
+# block streams part of its range), ranges past 16-bit offsets (the winners'
+# original indices from device memory), fewer points than blocks, one pick,
+# more picks than valid points
+_FPS_SIZES = {"overflow": (400003, 2000), "wide": (1100003, 100), "tiny": (11, 20),
+              "k1": (3000, 1), "k_above_valid": (3000, 400)}
+
+
 def _fps_case(case: str, n: int = 3000):
+    n, k = _FPS_SIZES.get(case, (n, 400))
     rng = np.random.default_rng(21)
     pts = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
-    pts[n // 2:n // 2 + 100] = pts[:100]              # duplicated points: equal scores
+    if n >= 200:
+        pts[n // 2:n // 2 + 100] = pts[:100]          # duplicated points: equal scores
+    idx = np.arange(n)
     mask = {"dense": None, "masked": rng.random(n) > 0.5,
-            "first_masked": np.arange(n) >= 37,
-            "few_valid": np.isin(np.arange(n), [3, 900, 901, 2500]),
-            "none_valid": np.zeros(n, bool)}[case]
-    return torch.from_numpy(pts), None if mask is None else torch.from_numpy(mask)
+            "first_masked": idx >= 37,
+            "few_valid": np.isin(idx, [3, 900, 901, 2500]),
+            "none_valid": np.zeros(n, bool),
+            "overflow": rng.random(n) > 0.02, "wide": rng.random(n) > 0.3,
+            "tiny": idx != 4, "k1": idx >= 5,
+            "k_above_valid": idx % 60 == 7,
+            "one_block": (idx >= 5 * 188) & (idx < 6 * 188)}[case]   # block 5's range
+    return torch.from_numpy(pts), None if mask is None else torch.from_numpy(mask), k
 
 
 def test_fps_sum_order_on_card(cuda):
@@ -632,28 +647,49 @@ def test_fps_sum_order_on_card(cuda):
     left to right)."""
     from torch_geom_models import fps_dist_kernel_order
 
-    p, _ = _fps_case("dense", 100003)
+    p, _, _ = _fps_case("dense", 100003)
     p = p.to(cuda)
     for q in (p[0], p[77], p[-1]):
         assert torch.equal(torch.sum((p - q) ** 2, dim=1), fps_dist_kernel_order(p, q))
 
 
-@pytest.mark.parametrize("case", ["dense", "masked", "first_masked", "few_valid", "none_valid"])
+@pytest.mark.parametrize("case", ["dense", "masked", "first_masked", "few_valid", "none_valid",
+                                  "overflow", "wide", "tiny", "k1", "k_above_valid",
+                                  "one_block"])
 def test_fps_kernel_matches_plain_on_card(cuda, case):
-    """One launch of fps_kernel gives the plain loop's picks on the card, bit
-    for bit: ties to the first index, the first valid point first, repeats
-    when fewer than k are valid, all zeros when none is."""
+    """One launch of fps_kernel (one cluster of 16 blocks) gives the plain
+    loop's picks on the card, bit for bit: ties to the first index, the
+    first valid point first, repeats when fewer than k are valid, all zeros
+    when none is; with a block's range beyond its shared memory, with empty
+    blocks, one pick, and every valid point in one block's range."""
     from autourdf_tpu_torch.ops import fps
 
-    pts, mask = _fps_case(case)
+    pts, mask, k = _fps_case(case)
     p, m = pts.to(cuda), None if mask is None else mask.to(cuda)
     before = _cuda.launch_counts["fps"]
-    got = fps.farthest_point_sample(p, 400, m)
+    got = fps.farthest_point_sample(p, k, m)
     assert _cuda.launch_counts["fps"] == before + 1
     assert got.dtype == torch.int64 and got.is_cuda
-    assert torch.equal(got, fps._fps_plain(p, 400, m))
+    assert torch.equal(got, fps._fps_plain(p, k, m))
     if case == "none_valid":
         assert not got.any()
+    if case == "one_block":
+        assert bool(((got >= 5 * 188) & (got < 6 * 188)).all())
+
+
+def test_fps_cluster_setup_on_card(cuda):
+    """The card holds fps_kernel's cluster of 16 blocks, the kernel spills
+    nothing, a capture's 200,000 surface points fit in the blocks' shared
+    memory and 400,003 overflow it."""
+    from autourdf_tpu_torch.ops import fps
+
+    setup = fps.cluster_setup(cuda)
+    assert setup.max_clusters >= 1 and setup.local_bytes == 0
+    assert setup.shared_max > 200 * 1024
+    cap, nbytes = fps.shared_plan(cuda, 200000)
+    assert cap == 12500 and nbytes <= setup.shared_max
+    cap, nbytes = fps.shared_plan(cuda, 400003)
+    assert cap < 25001 and nbytes <= setup.shared_max
 
 
 def _cross_covariances(B: int, seed: int):

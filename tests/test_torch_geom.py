@@ -203,28 +203,62 @@ def _cpu_dist(points, q):
     return torch.sum((points - q) ** 2, dim=1)
 
 
-@pytest.mark.parametrize("case", ["dense", "masked", "few_valid", "none_valid"])
-def test_fps_packed_key_model_matches_the_picks(case):
-    """The kernel's compaction and packed-key argmax (distance bits above
-    the complement of the compact index) give the plain version's picks and
-    the JAX package's, ties to the first index included; fewer valid points
-    than k repeat the valid set, none gives all zeros."""
+def _fps_inputs(case):
+    """700 points with a duplicated block (equal scores) and the mask of
+    ``case``; "one_block": only the indices [220, 264), the whole range of
+    block 5 of 16."""
     rng = np.random.default_rng(11)
     pts = rng.uniform(-0.3, 0.3, (700, 3)).astype(np.float32)
     pts[350:420] = pts[:70]                              # duplicated points: equal scores
     mask = {"dense": None, "masked": rng.random(700) > 0.4,
             "few_valid": np.isin(np.arange(700), [5, 17, 400, 401]),
-            "none_valid": np.zeros(700, bool)}[case]
-    k = 60
+            "none_valid": np.zeros(700, bool),
+            "one_block": (np.arange(700) >= 220) & (np.arange(700) < 264)}[case]
+    return pts, mask
+
+
+def _check_fps_model(case, k=60, **partition):
+    pts, mask = _fps_inputs(case)
     m_t = None if mask is None else T_(mask)
-    got = fps_model(T_(pts), k, m_t, dist=_cpu_dist)
-    plain = tfps.farthest_point_sample(T_(pts), k, m_t)
+    got = fps_model(T_(pts), k, m_t, dist=_cpu_dist, **partition)
+    plain = tfps._fps_plain(T_(pts), k, m_t)
     ref = np.asarray(jfps.farthest_point_sample(jnp.asarray(pts), k,
                                                 None if mask is None else jnp.asarray(mask)))
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
     np.testing.assert_array_equal(got.numpy(), ref)
     if case == "none_valid":
         assert not got.any()
+    return got
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "few_valid", "none_valid"])
+def test_fps_packed_key_model_matches_the_picks(case):
+    """The kernel's compaction and packed-key argmax (distance bits above
+    the complement of the index) give the plain version's picks and the JAX
+    package's, ties to the first index included; fewer valid points than k
+    repeat the valid set, none gives all zeros."""
+    _check_fps_model(case)
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "few_valid", "none_valid", "one_block"])
+@pytest.mark.parametrize("blocks", [1, 2, 16])
+def test_fps_cluster_partition_model_matches_the_picks(blocks, case):
+    """Whatever the number of blocks the points are split over (each owning
+    a range of original indices, compacting its valid points stably and
+    keying them on the compact index, its winner on the original one), the
+    largest winner is the plain version's and the JAX package's pick, step 0
+    included (every minimum at +inf: the first valid point)."""
+    got = _check_fps_model(case, blocks=blocks)
+    if case == "one_block":
+        assert bool(((got >= 220) & (got < 264)).all())
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "one_block"])
+def test_fps_cluster_overflow_model_matches_the_picks(case):
+    """A block's points beyond its shared capacity (streamed from device
+    memory each step, keyed on the same compact index) change no pick."""
+    _check_fps_model(case, blocks=16, capacity=5)
+    _check_fps_model(case, blocks=2, capacity=100)
 
 
 def test_fps_kernel_sum_order_picks_on_clean_data():

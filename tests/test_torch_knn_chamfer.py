@@ -190,3 +190,32 @@ def test_chamfer_from_indices_parity(masked):
     (tg,) = torch.autograd.grad(tl, xt)
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-6)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
+
+
+def test_chamfer_grad_is_the_same_every_call_on_the_cpu():
+    """The Chamfer backward's scatter-add sums each target's values in their
+    order on the CPU whatever the intra-op threads: repeated calls with four
+    threads give the one-thread gradient bit for bit.  (An accumulating
+    ``index_put_`` adds with atomics across threads there, and the port's
+    registrations at the real scans' size differed run to run in their last
+    bits.)  36,000 values into 3,000 targets: enough for ATen to split the
+    sum over threads."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(3, 4000, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(3, 1000, 3)).astype(np.float32))
+
+    def grads():
+        xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        loss = tch.chamfer_distance(xr, yr, norm=1)
+        return torch.autograd.grad(loss.sum(), (xr, yr))
+
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        ref = grads()
+        torch.set_num_threads(4)
+        for _ in range(3):
+            got = grads()
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    finally:
+        torch.set_num_threads(threads)

@@ -21,9 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# csrc/geom.cu kKabschSweeps, kEigSweeps
+# csrc/geom.cu kKabschSweeps, kEigSweeps, kFpsCluster
 KABSCH_SWEEPS = 6
 EIG_SWEEPS = 6
+FPS_CLUSTER_BLOCKS = 16
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -127,24 +128,48 @@ def fps_dist_kernel_order(points: torch.Tensor, q: torch.Tensor) -> torch.Tensor
 
 
 def fps_model(points: torch.Tensor, k: int, mask: torch.Tensor | None = None,
-              dist=fps_dist_kernel_order) -> torch.Tensor:
-    """``fps_kernel``: the stable compaction of the valid points, then k
-    steps of the running minimum and the maximum of packed 64-bit keys
-    (distance bits above the complement of the compact index)."""
+              dist=fps_dist_kernel_order, blocks: int = FPS_CLUSTER_BLOCKS,
+              capacity: int | None = None) -> torch.Tensor:
+    """``fps_kernel``: block b of ``blocks`` owns the original indices
+    ``[b R, (b + 1) R)``, ``R = ceil(n / blocks)``, and compacts its valid
+    points stably (the first ``capacity`` into shared memory, the rest
+    streamed from device memory; all of them where None).  Each step a
+    block takes the largest key of its points, the running minimum's bits
+    above the complement of the compact index, over its shared part and its
+    overflow; its winner carries the minimum's bits above the complement of
+    its original index, and the pick is the largest winner.  Step 0 is the
+    same reduction with every minimum at +inf; with no valid point every
+    pick is 0."""
     n = points.shape[0]
-    orig = (torch.arange(n, device=points.device) if mask is None
-            else torch.nonzero(mask.to(torch.bool))[:, 0])
-    count = orig.shape[0]
-    if count == 0:
-        return torch.zeros(k, dtype=torch.int64, device=points.device)
-    work = points[orig].to(torch.float32)
-    low = (~torch.arange(count, device=points.device)) & 0xFFFFFFFF
-    mind = torch.full((count,), torch.inf, dtype=torch.float32, device=points.device)
-    picks, q = [orig[0]], work[0]
-    for _ in range(1, k):
-        mind = torch.minimum(mind, dist(work, q))
-        key = (mind.view(torch.int32).to(torch.int64) << 32) | low
-        nxt = int((~torch.max(key)) & 0xFFFFFFFF)
-        picks.append(orig[nxt])
-        q = work[nxt]
-    return torch.stack(picks)
+    dev = points.device
+    valid = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
+             else mask.to(device=dev, dtype=torch.bool))
+    rng = -(-n // blocks)
+    parts = []                                   # (original indices, points, minima)
+    for b in range(blocks):
+        idx = torch.arange(b * rng, min(n, (b + 1) * rng), device=dev)
+        orig = idx[valid[idx]]
+        parts.append([orig, points[orig].to(torch.float32),
+                      torch.full((len(orig),), torch.inf, dtype=torch.float32, device=dev)])
+    picks, q = [], None
+    for _ in range(k):
+        winners = []                             # (global key, coordinates)
+        for part in parts:
+            orig, work, mind = part
+            count = len(orig)
+            if count == 0:
+                winners.append((0, None))
+                continue
+            if q is not None:
+                mind = part[2] = torch.minimum(mind, dist(work, q))
+            low = (~torch.arange(count, device=dev)) & 0xFFFFFFFF
+            key = (mind.view(torch.int32).to(torch.int64) << 32) | low
+            cap = count if capacity is None else capacity
+            best = max(int(key[i:j].max()) for i, j in ((0, cap), (cap, count)) if j > i)
+            j = (~best) & 0xFFFFFFFF
+            winners.append((((best >> 32) << 32) | ((~int(orig[j])) & 0xFFFFFFFF), work[j]))
+        pick, q = max(winners, key=lambda w: w[0])
+        if pick == 0:
+            return torch.zeros(k, dtype=torch.int64, device=dev)
+        picks.append((~pick) & 0xFFFFFFFF)
+    return torch.tensor(picks, dtype=torch.int64, device=dev)
