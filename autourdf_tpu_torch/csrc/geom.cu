@@ -1,20 +1,21 @@
-// Small geometry kernels for Hopper (sm_90a), fp32: the three operations
-// that the JAX package runs inside its compiled programs and that PyTorch
-// would run on the card only by waiting on the host.
+// Geometry kernels for Hopper (sm_90a), fp32: the operations that the JAX
+// package runs inside its compiled programs and that PyTorch would run on
+// the card only as many small kernels or by waiting on the host.
 //
-//   fps_kernel           <- autourdf_tpu/ops/fps.py:17 farthest_point_sample
-//                           (a fori_loop of k argmax steps)
-//   kabsch3_kernel       <- autourdf_tpu/ops/icp.py:50 _kabsch
-//                           (jnp.linalg.svd + det of the 3x3 cross-covariance)
-//   sym_eig3_min_kernel  <- autourdf_tpu/ops/plane.py:56 estimate_normals
-//                           (jnp.linalg.eigh of each 3x3 covariance)
+//   fps_kernel          <- autourdf_tpu/ops/fps.py:17 farthest_point_sample
+//                          (a fori_loop of k argmax steps)
+//   icp_kabsch_kernel   <- autourdf_tpu/ops/icp.py:50 _kabsch + :102-121 step
+//                          (gating, weighted means, H, jnp.linalg.svd + det,
+//                          Newton-Schulz, fitness, RMSE, convergence freeze)
+//   pca_normals_kernel  <- autourdf_tpu/ops/plane.py:79-88 estimate_normals
+//                          (gather, mean, covariance, jnp.linalg.eigh, flip)
 //
 // None of them replaces a Pallas kernel: XLA compiled these into the JAX
 // programs.  PyTorch's torch.linalg.svd, det and eigh read the solver's
 // status back to the host on CUDA, and the farthest-point loop is k Python
 // steps of four or five kernels each, so none of them could sit inside a
 // captured program (utils/programs.py) before.
-//
+
 // fps_kernel: the whole pick in one launch of one cluster of 16 blocks
 // (1,024 threads each, on 16 SMs).  Each of the k steps is a pass over the
 // points (the running minimum squared distance to the picks, then its
@@ -61,30 +62,67 @@
 // plain version's, bit for bit.  The launch sets the non-portable cluster
 // size and the shared memory once (geom_fps_setup), before any capture.
 //
-// kabsch3_kernel and sym_eig3_min_kernel: one thread a 3x3 matrix, all in
-// registers, fixed sweeps of cyclic Jacobi rotations (no data-dependent
-// loop, no branch but the skip of a rotation whose off-diagonal entry is
-// exactly zero).  Bound by the latency of a thread's dependent fp32 chain:
-// the batches are 1 to 20,000 matrices, a fraction of one wave.
-//   - Kabsch: H = U S V^T by one-sided Jacobi on H's columns (Hestenes:
-//     the column pair's Gram entries are recomputed from the rotated
-//     columns, so the squared condition number of H^T H never forms),
-//     accumulating V; the columns sorted by norm, largest first (a swap
-//     negates one column, so V stays a proper rotation); then B = H V
+// icp_kabsch_kernel: everything of an ICP iteration after the search, one
+// launch for the whole batch, in place of the ~70 small kernels of the plain
+// step (ops/icp.py _kabsch_step_plain).  Bound by bytes: a point's moved
+// (12), index (8), gathered match (12), d2 (4) and weight (4), plus its
+// source (12) and next moved (12) written; at the small batches of the link,
+// polish and resim ICPs by the launch and the two cluster barriers.
+//   - One cluster an entry of ceil(n / 2,048) blocks of 256 threads (at most
+//     8, portable), a partition fixed by n alone: block r owns the points
+//     [r R, (r + 1) R), R = ceil(n / blocks), thread t the points t + 256 j
+//     of them, its first 8 kept in registers across both passes.
+//   - Pass 1 sums w, s w, d w and w d2 (w = src_w (sqrt(d2) < threshold),
+//     the threshold read from device memory, so one captured program serves
+//     every threshold); pass 2 the centred H = sum ((s - s_mean) w)
+//     (d - d_mean)^T, two passes as the JAX _kabsch: the one-pass
+//     sum w s d^T - W s_mean d_mean^T cancels in fp32 when a link sits far
+//     from the origin.
+//   - Each sum in a fixed order, no atomics: a thread's points in order, a
+//     shuffle tree in each warp, the warps in order into the block's shared
+//     memory; after a cluster barrier every block reads the cluster's
+//     partials through distributed shared memory in rank order, so every
+//     block holds the same totals, bit for bit, and a run gives the same
+//     bits every time.
+//   - The 3x3 work on one thread: H = U S V^T by one-sided Jacobi on H's
+//     columns (Hestenes: the column pair's Gram entries are recomputed from
+//     the rotated columns, so the squared condition number of H^T H never
+//     forms), accumulating V; the columns sorted by norm, largest first (a
+//     swap negates one column, so V stays a proper rotation); then B = H V
 //     reduced to upper-triangular form by three Givens rotations, whose
 //     product U is proper, with the first two diagonal entries non-negative
 //     and the third carrying det's sign.  R = V U^T is then
 //     V diag(1, 1, det(V U^T)) U^T of the plain version: the reflection
-//     falls on the smallest singular value.  H = 0 rotates nothing: exactly
-//     the identity.  (The same construction as McAdams et al. 2011,
-//     "Computing the singular value decomposition of 3x3 matrices with
-//     minimal branching", with exact rotations in place of its approximate
-//     quaternion ones, which would turn a zero H.)
-//   - Smallest eigenvector: two-sided cyclic Jacobi on the symmetric matrix,
-//     accumulating the eigenvectors; the column of the smallest diagonal
-//     entry (the first on ties), normalised.  Iterative, not the closed-form
-//     trigonometric roots, which lose the vector when the two smallest
-//     eigenvalues are close.
+//     falls on the smallest singular value.  H = 0 (no inlier, an empty
+//     gate) rotates nothing: exactly the identity, so T keeps its init.
+//     (The construction of McAdams et al. 2011, "Computing the singular
+//     value decomposition of 3x3 matrices with minimal branching", with
+//     exact rotations in place of its approximate quaternion ones, which
+//     would turn a zero H.)  Then the four Newton-Schulz steps, T, fitness,
+//     RMSE, the relative criteria and the freeze; rank 0 writes them.
+//   - Every block solves the same 3x3 (the same bits) and writes its own
+//     points' next moved, source T^T of the frozen T, so the loop needs no
+//     transform kernels between iterations (H100: 27.3 us against 56.9 us
+//     for the kernel without it plus the plain transform at B = 100,
+//     PERF.md Table 2).
+//
+// pca_normals_kernel: a point a thread, 32 a block (about 156 blocks at the
+// 4,988 points of a real frame, all 132 SMs).  The block's 32 x k indices,
+// one contiguous range, come into shared memory by 16-byte cp.async; each
+// thread issues the loads of its row's first 32 neighbours together
+// (through the read-only path) and keeps them in registers for both sums
+// (the k-neighbour mean, then the six sums of the centred covariance, each
+// in neighbour order), then cyclic Jacobi (two-sided, 6 sweeps,
+// accumulating the eigenvectors), the column of the smallest diagonal entry
+// (the first on ties), normalised, flipped towards +z.  Iterative, not the
+// closed-form trigonometric roots, which lose the vector when the two
+// smallest eigenvalues are close.  Bound by bytes: the indices, 8 k a point.
+// Measured against other designs (scripts/pca_normals_designs.cu; H100
+// 80GB HBM3 at 700 W, PERF.md Table 2): walking the row twice, a load at a
+// time, took 11.3 us at 4,988 points against 8.4 us; several lanes a point
+// (4, 8 or 16, a shuffle butterfly), one solver thread after 8 lanes, or
+// the whole cloud staged in shared memory took 8.1-10.5 us, none clearly
+// ahead: each point's own chain of work, not its loads, sets the time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -282,12 +320,12 @@ __global__ void __launch_bounds__(kFpsThreads, 1) cluster_barriers_kernel(int k)
 }
 
 // ---------------------------------------------------------------------------
-// 3x3 Jacobi kernels
+// 3x3 solves (device functions) and the two fused kernels around them
 // ---------------------------------------------------------------------------
 
-constexpr int kJacobiThreads = 128;
 constexpr int kKabschSweeps = 6;
 constexpr int kEigSweeps = 6;
+constexpr int kNewtonSchulz = 4;      // ops/icp.py _orthonormalize
 
 // (c, s) of the Jacobi rotation that zeroes the pair's coupling `g` given its
 // diagonal entries `a` (p) and `b` (q): t = sign(z) / (|z| + sqrt(1 + z^2)),
@@ -360,19 +398,14 @@ __device__ __forceinline__ void givens(float (&B)[3][3], float (&U)[3][3], int p
   }
 }
 
-// H (b, 3, 3) row-major -> R (b, 3, 3) = V diag(1, 1, det(V U^T)) U^T
-__global__ void __launch_bounds__(kJacobiThreads) kabsch3_kernel(
-    const float* __restrict__ H, float* __restrict__ R, int b) {
-  const int m = blockIdx.x * kJacobiThreads + threadIdx.x;
-  if (m >= b) return;
-  float B[3][3], V[3][3], U[3][3];
+// B holds H (row-major) and is overwritten -> R = V diag(1, 1, det(V U^T)) U^T
+// of H = U S V^T
+__device__ __forceinline__ void kabsch3(float (&B)[3][3], float (&R)[3][3]) {
+  float V[3][3], U[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      B[i][j] = H[9 * (size_t)m + 3 * i + j];
-      V[i][j] = U[i][j] = i == j ? 1.f : 0.f;
-    }
+    for (int j = 0; j < 3; ++j) V[i][j] = U[i][j] = i == j ? 1.f : 0.f;
   }
 #pragma unroll 1
   for (int sweep = 0; sweep < kKabschSweeps; ++sweep) {
@@ -389,8 +422,32 @@ __global__ void __launch_bounds__(kJacobiThreads) kabsch3_kernel(
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      R[9 * (size_t)m + 3 * i + j] = (V[i][0] * U[j][0] + V[i][1] * U[j][1]) + V[i][2] * U[j][2];
+    for (int j = 0; j < 3; ++j)
+      R[i][j] = (V[i][0] * U[j][0] + V[i][1] * U[j][1]) + V[i][2] * U[j][2];
+  }
+}
+
+// R <- 1.5 R - 0.5 (R R^T) R, kNewtonSchulz times (ops/icp.py _orthonormalize)
+__device__ __forceinline__ void newton_schulz(float (&R)[3][3]) {
+#pragma unroll 1
+  for (int step = 0; step < kNewtonSchulz; ++step) {
+    float P[3][3], Q[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        P[i][j] = (R[i][0] * R[j][0] + R[i][1] * R[j][1]) + R[i][2] * R[j][2];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        Q[i][j] = (P[i][0] * R[0][j] + P[i][1] * R[1][j]) + P[i][2] * R[2][j];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) R[i][j] = 1.5f * R[i][j] - 0.5f * Q[i][j];
     }
   }
 }
@@ -417,20 +474,15 @@ __device__ __forceinline__ void sym_rotate(float (&A)[3][3], float (&V)[3][3], i
   }
 }
 
-// C (n, 3, 3) symmetric, row-major -> out (n, 3): the unit eigenvector of
-// the smallest eigenvalue
-__global__ void __launch_bounds__(kJacobiThreads) sym_eig3_min_kernel(
-    const float* __restrict__ C, float* __restrict__ out, int n) {
-  const int m = blockIdx.x * kJacobiThreads + threadIdx.x;
-  if (m >= n) return;
-  float A[3][3], V[3][3];
+// A symmetric (overwritten) -> (x, y, z), the unit eigenvector of its
+// smallest eigenvalue: the column of the smallest diagonal entry after the
+// sweeps, the first on ties (selects, not an index: V stays in registers)
+__device__ __forceinline__ void sym_eig3_min(float (&A)[3][3], float& x, float& y, float& z) {
+  float V[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      A[i][j] = C[9 * (size_t)m + 3 * i + j];
-      V[i][j] = i == j ? 1.f : 0.f;
-    }
+    for (int j = 0; j < 3; ++j) V[i][j] = i == j ? 1.f : 0.f;
   }
 #pragma unroll 1
   for (int sweep = 0; sweep < kEigSweeps; ++sweep) {
@@ -438,9 +490,8 @@ __global__ void __launch_bounds__(kJacobiThreads) sym_eig3_min_kernel(
     sym_rotate(A, V, 0, 2, 1);
     sym_rotate(A, V, 1, 2, 0);
   }
-  // the column of the smallest diagonal entry, the first on ties (selects,
-  // not an index: V stays in registers)
-  float least = A[0][0], x = V[0][0], y = V[1][0], z = V[2][0];
+  float least = A[0][0];
+  x = V[0][0], y = V[1][0], z = V[2][0];
   if (A[1][1] < least) {
     least = A[1][1];
     x = V[0][1], y = V[1][1], z = V[2][1];
@@ -449,9 +500,343 @@ __global__ void __launch_bounds__(kJacobiThreads) sym_eig3_min_kernel(
     x = V[0][2], y = V[1][2], z = V[2][2];
   }
   const float inv = 1.f / sqrtf((x * x + y * y) + z * z);
-  out[3 * (size_t)m] = x * inv;
-  out[3 * (size_t)m + 1] = y * inv;
-  out[3 * (size_t)m + 2] = z * inv;
+  x *= inv;
+  y *= inv;
+  z *= inv;
+}
+
+// ---------------------------------------------------------------------------
+// icp_kabsch_kernel: one ICP iteration after the search
+// ---------------------------------------------------------------------------
+
+constexpr int kIcpThreads = 256;
+constexpr int kIcpWarps = kIcpThreads / 32;
+constexpr int kIcpMaxCluster = 8;       // the portable cluster size
+constexpr int kIcpBlockPoints = 2048;   // ceil(n / this) blocks a cluster, at most kIcpMaxCluster
+constexpr int kIcpRegPoints = 8;        // a thread's first points, in registers for both passes
+constexpr int kIcpSums1 = 8;            // sum w, sum s w (3), sum d w (3), sum w d2
+constexpr int kIcpSums2 = 9;            // H
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v summed over the block into out[0, NS) (shared), in a fixed order: in each
+// warp a shuffle tree (lane l + off into lane l, off = 16, 8, 4, 2, 1), then
+// the warps in order.  scratch: kIcpWarps x NS floats of shared memory.
+template <int NS>
+__device__ __forceinline__ void block_sums(float (&v)[NS], float* scratch, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[s] += __shfl_down_sync(0xffffffffu, v[s], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) scratch[warp * NS + s] = v[s];
+  }
+  __syncthreads();
+  if (threadIdx.x < NS) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kIcpWarps; ++w) acc += scratch[w * NS + threadIdx.x];
+    out[threadIdx.x] = acc;
+  }
+}
+
+// tot[0, NS) = the sum of every block's part[0, NS) in rank order, read
+// through distributed shared memory (after a cluster barrier), so every
+// block of the cluster holds the same totals, bit for bit
+template <int NS>
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster, float* part, float* tot) {
+  if (threadIdx.x < NS) {
+    float acc = 0.f;
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r)
+      acc += *cluster.map_shared_rank(part + threadIdx.x, r);
+    tot[threadIdx.x] = acc;
+  }
+}
+
+// point i of the entry: moved s, its match d = tgt[idx], the gated weight
+// w = src_w (sqrt(max(d2, 0)) < threshold) and d2
+__device__ __forceinline__ void icp_point(const float* mv, const float* tg, const int64_t* ix,
+                                          const float* dd, const float* sw, int i, float thr,
+                                          float (&s)[3], float (&d)[3], float& w, float& e2) {
+  const int64_t q = ix[i];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    s[r] = mv[3 * (size_t)i + r];
+    d[r] = tg[3 * q + r];
+  }
+  e2 = dd[i];
+  w = sw[i] * (sqrtf(fmaxf(e2, 0.f)) < thr ? 1.f : 0.f);
+}
+
+__device__ __forceinline__ void icp_first_sums(float (&acc)[kIcpSums1], const float (&s)[3],
+                                               const float (&d)[3], float w, float e2) {
+  acc[0] += w;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    acc[1 + r] += s[r] * w;
+    acc[4 + r] += d[r] * w;
+  }
+  acc[7] += w * e2;
+}
+
+// H += ((s - s_mean) w) (d - d_mean)^T
+__device__ __forceinline__ void icp_cross_sums(float (&h)[kIcpSums2], const float (&s)[3],
+                                               const float (&d)[3], float w, const float* sm,
+                                               const float* dm) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float sa = (s[a] - sm[a]) * w;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) h[3 * a + b] += sa * (d[b] - dm[b]);
+  }
+}
+
+// One cluster of ceil(n / range) blocks an entry; block `rank` owns the
+// points [rank range, (rank + 1) range), thread t the points t + j
+// kIcpThreads of them.  Pass 1: the weights and sums of w, s w, d w, w d2;
+// the means; pass 2: the centred H; then the rotation, T, fitness, RMSE,
+// convergence and freeze of ops/icp.py _kabsch_step_plain; every block
+// then writes its points' next moved, source T[:3, :3]^T + T[:3, 3] of the
+// frozen T, over `moved`.
+__global__ void __launch_bounds__(kIcpThreads) icp_kabsch_kernel(
+    const float* __restrict__ source, float* moved, const float* __restrict__ tgt,
+    const int64_t* __restrict__ idx, const float* __restrict__ d2,
+    const float* __restrict__ src_w, const float* __restrict__ src_total,
+    const float* __restrict__ threshold, const float* __restrict__ rel_rmse,
+    const float* __restrict__ rel_fitness, float* __restrict__ T, float* __restrict__ fitness,
+    float* __restrict__ rmse, bool* __restrict__ done, int n, int m, int range) {
+  __shared__ float scratch[kIcpWarps * kIcpSums2];
+  __shared__ float part1[kIcpSums1], tot1[kIcpSums1], part2[kIcpSums2], tot2[kIcpSums2];
+  // the entry's T, fitness, rmse and done as they were, then the frozen T
+  __shared__ float state[19], T_next[12];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int e = blockIdx.x / cluster.num_blocks();
+  const int t = threadIdx.x;
+  const int base = rank * range;
+  const int end = base + range < n ? base + range : n;
+  const size_t row = static_cast<size_t>(e) * n;
+  const float* mv = moved + 3 * row;
+  const float* tg = tgt + 3 * static_cast<size_t>(e) * m;
+  const int64_t* ix = idx + row;
+  const float* dd = d2 + row;
+  const float* sw = src_w + row;
+  const float thr = *threshold;
+  // read before the first cluster barrier; rank 0 writes after the last
+  if (t < 16) state[t] = T[16 * static_cast<size_t>(e) + t];
+  if (t == 16) state[16] = fitness[e];
+  if (t == 17) state[17] = rmse[e];
+  if (t == 18) state[18] = done[e] ? 1.f : 0.f;
+
+  // pass 1
+  float s[kIcpRegPoints][3], d[kIcpRegPoints][3], w[kIcpRegPoints];
+  float acc[kIcpSums1];
+#pragma unroll
+  for (int k = 0; k < kIcpSums1; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kIcpRegPoints; ++j) {
+    const int i = base + t + j * kIcpThreads;
+    w[j] = 0.f;
+    if (i < end) {
+      float e2;
+      icp_point(mv, tg, ix, dd, sw, i, thr, s[j], d[j], w[j], e2);
+      icp_first_sums(acc, s[j], d[j], w[j], e2);
+    }
+  }
+  for (int i = base + t + kIcpRegPoints * kIcpThreads; i < end; i += kIcpThreads) {
+    float ps[3], pd[3], pw, e2;
+    icp_point(mv, tg, ix, dd, sw, i, thr, ps, pd, pw, e2);
+    icp_first_sums(acc, ps, pd, pw, e2);
+  }
+  block_sums<kIcpSums1>(acc, scratch, part1);
+  cluster.sync();
+  cluster_sums<kIcpSums1>(cluster, part1, tot1);
+  __syncthreads();
+  const float wsum = fmaxf(tot1[0], 1e-12f);
+  float sm[3], dm[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    sm[r] = tot1[1 + r] / wsum;
+    dm[r] = tot1[4 + r] / wsum;
+  }
+
+  // pass 2
+  float h[kIcpSums2];
+#pragma unroll
+  for (int k = 0; k < kIcpSums2; ++k) h[k] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kIcpRegPoints; ++j) {
+    if (base + t + j * kIcpThreads < end) icp_cross_sums(h, s[j], d[j], w[j], sm, dm);
+  }
+  for (int i = base + t + kIcpRegPoints * kIcpThreads; i < end; i += kIcpThreads) {
+    float ps[3], pd[3], pw, e2;
+    icp_point(mv, tg, ix, dd, sw, i, thr, ps, pd, pw, e2);
+    icp_cross_sums(h, ps, pd, pw, sm, dm);
+  }
+  block_sums<kIcpSums2>(h, scratch, part2);
+  cluster.sync();
+  cluster_sums<kIcpSums2>(cluster, part2, tot2);
+  // this block reads no other block's shared memory from here on; the wait
+  // at the end keeps every block's partials alive until all have read them
+  cluster_arrive();
+  __syncthreads();
+
+  if (t == 0) {
+    float B[3][3], R[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) B[a][b] = tot2[3 * a + b];
+    }
+    kabsch3(B, R);
+    newton_schulz(R);
+    // T_new = [R | d_mean - R s_mean] T; its last row is T's
+    float Tn[16];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float ta = dm[a] - ((R[a][0] * sm[0] + R[a][1] * sm[1]) + R[a][2] * sm[2]);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        Tn[4 * a + b] = ((R[a][0] * state[b] + R[a][1] * state[4 + b]) + R[a][2] * state[8 + b])
+                        + ta * state[12 + b];
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) Tn[12 + b] = state[12 + b];
+    const float fit = tot1[0] / src_total[e];
+    const float err = sqrtf(tot1[7] / fmaxf(tot1[0], 1e-12f));
+    const bool conv = fabsf(fit - state[16]) < *rel_fitness * fmaxf(fit, 1e-12f) &&
+                      fabsf(err - state[17]) < *rel_rmse * fmaxf(err, 1e-12f);
+    const bool frozen = state[18] != 0.f;
+#pragma unroll
+    for (int q = 0; q < 12; ++q) T_next[q] = frozen ? state[q] : Tn[q];
+    if (rank == 0) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) T[16 * static_cast<size_t>(e) + q] = frozen ? state[q] : Tn[q];
+      if (!frozen) {
+        fitness[e] = fit;
+        rmse[e] = err;
+      }
+      done[e] = frozen || conv;
+    }
+  }
+  __syncthreads();
+  const float* src = source + 3 * row;
+  float* out = moved + 3 * row;
+  for (int i = base + t; i < end; i += kIcpThreads) {
+    const float x = src[3 * (size_t)i], y = src[3 * (size_t)i + 1], z = src[3 * (size_t)i + 2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float* tr = T_next + 4 * r;
+      out[3 * (size_t)i + r] = ((x * tr[0] + y * tr[1]) + z * tr[2]) + tr[3];
+    }
+  }
+  cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
+// pca_normals_kernel: the normal of each point's k-neighbourhood
+// ---------------------------------------------------------------------------
+
+constexpr int kPcaPoints = 32;    // points (threads) a block: 5,000 points reach every SM
+constexpr int kPcaMaxK = 192;     // a block's kPcaPoints x k indices in 48 KB of shared memory
+constexpr int kPcaRegs = 32;      // a row's first neighbours, loaded together, kept in registers
+
+// points (n, 3), idx (n, k) int64 (16-byte aligned) -> out (n, 3): the
+// smallest-eigenvalue eigenvector of the centred covariance of the k points
+// idx[i], unit, flipped towards +z.  The block's rows of idx are one
+// contiguous range, staged into shared memory with 16-byte cp.async; each
+// thread then loads its row's first kPcaRegs neighbours together (the rest,
+// if k is larger, once a sum) and sums them in order twice (mean, then the
+// six sums of the covariance).
+__global__ void __launch_bounds__(kPcaPoints) pca_normals_kernel(
+    const float* __restrict__ pts, const int64_t* __restrict__ idx, int n, int k,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) int64_t pca_idx[];
+  const int t = threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * kPcaPoints;
+  const int rows = n - first < kPcaPoints ? static_cast<int>(n - first) : kPcaPoints;
+  const int count = rows * k;
+  const int64_t* src = idx + first * k;
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(pca_idx));
+  for (int c = t; c < count / 2; c += kPcaPoints)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst + 16 * c), "l"(src + 2 * c) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if ((count & 1) && t == 0) pca_idx[count - 1] = src[count - 1];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (t >= rows) return;
+  const int64_t* nb = pca_idx + t * k;
+  float px[kPcaRegs], py[kPcaRegs], pz[kPcaRegs];
+#pragma unroll
+  for (int j = 0; j < kPcaRegs; ++j) {
+    if (j < k) {
+      const float* p = pts + 3 * nb[j];
+      px[j] = __ldg(p);
+      py[j] = __ldg(p + 1);
+      pz[j] = __ldg(p + 2);
+    }
+  }
+  float mx = 0.f, my = 0.f, mz = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPcaRegs; ++j) {
+    if (j < k) {
+      mx += px[j];
+      my += py[j];
+      mz += pz[j];
+    }
+  }
+  for (int j = kPcaRegs; j < k; ++j) {
+    const float* p = pts + 3 * nb[j];
+    mx += __ldg(p);
+    my += __ldg(p + 1);
+    mz += __ldg(p + 2);
+  }
+  const float fk = static_cast<float>(k);
+  mx /= fk;
+  my /= fk;
+  mz /= fk;
+  float c00 = 0.f, c01 = 0.f, c02 = 0.f, c11 = 0.f, c12 = 0.f, c22 = 0.f;
+  const auto add = [&](float x, float y, float z) {
+    x -= mx;
+    y -= my;
+    z -= mz;
+    c00 += x * x;
+    c01 += x * y;
+    c02 += x * z;
+    c11 += y * y;
+    c12 += y * z;
+    c22 += z * z;
+  };
+#pragma unroll
+  for (int j = 0; j < kPcaRegs; ++j) {
+    if (j < k) add(px[j], py[j], pz[j]);
+  }
+  for (int j = kPcaRegs; j < k; ++j) {
+    const float* p = pts + 3 * nb[j];
+    add(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+  }
+  float A[3][3] = {{c00, c01, c02}, {c01, c11, c12}, {c02, c12, c22}};
+  float x, y, z;
+  sym_eig3_min(A, x, y, z);
+  if (z < 0.f) {
+    x = -x;
+    y = -y;
+    z = -z;
+  }
+  float* o = out + 3 * (first + t);
+  o[0] = x;
+  o[1] = y;
+  o[2] = z;
 }
 
 }  // namespace
@@ -464,23 +849,34 @@ namespace {
 // fps_kernel's dynamic shared memory limit, set by geom_fps_setup
 int g_fps_shared_max = -1;
 
-// one cluster of kFpsCluster blocks of kFpsThreads; `cluster` must outlive
-// the config
-cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& cluster, int shared_bytes,
-                                  void* stream) {
+// a launch of `grid` blocks of `threads` in clusters of `blocks`; `cluster`
+// must outlive the config
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& cluster, int blocks, int grid, int threads,
+                                  int shared_bytes, void* stream) {
   cluster = cudaLaunchAttribute{};
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = kFpsCluster;
+  cluster.val.clusterDim.x = blocks;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(kFpsCluster);
-  cfg.blockDim = dim3(kFpsThreads);
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = shared_bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// fps_kernel's launch: one cluster of kFpsCluster blocks of kFpsThreads
+cudaLaunchConfig_t fps_config(cudaLaunchAttribute& cluster, int shared_bytes, void* stream) {
+  return cluster_config(cluster, kFpsCluster, kFpsCluster, kFpsThreads, shared_bytes, stream);
+}
+
+// icp_kabsch_kernel's blocks a cluster for entries of n points
+int icp_cluster_blocks(int n) {
+  const int c = (n + kIcpBlockPoints - 1) / kIcpBlockPoints;
+  return c < 1 ? 1 : (c > kIcpMaxCluster ? kIcpMaxCluster : c);
 }
 }  // namespace
 
@@ -526,7 +922,7 @@ extern "C" int geom_fps_setup(int* max_clusters, int* shared_max, int* regs, int
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = cluster_config(cluster, dyn, nullptr);
+  const cudaLaunchConfig_t cfg = fps_config(cluster, dyn, nullptr);
   err = cudaOccupancyMaxActiveClusters(max_clusters, fps_kernel, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   g_fps_shared_max = dyn;
@@ -545,7 +941,7 @@ extern "C" int geom_fps_launch(const float* points, const bool* mask, int n, int
   const int bytes = geom_fps_plan(n, &cap);
   if (bytes < 0) return (int)cudaErrorInitializationError;   // geom_fps_setup first
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = cluster_config(cluster, bytes, stream);
+  const cudaLaunchConfig_t cfg = fps_config(cluster, bytes, stream);
   const int range = (n + kFpsCluster - 1) / kFpsCluster;
   cudaError_t err = cudaLaunchKernelEx(&cfg, fps_kernel, points, mask, n, k, range, cap,
                                        static_cast<float4*>(work), orig, out);
@@ -558,24 +954,62 @@ extern "C" int geom_fps_launch(const float* points, const bool* mask, int n, int
 extern "C" int geom_cluster_barriers_launch(int k, void* stream) {
   if (k <= 0 || g_fps_shared_max < 0) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = cluster_config(cluster, 0, stream);
+  const cudaLaunchConfig_t cfg = fps_config(cluster, 0, stream);
   cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_barriers_kernel, k);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// H (b, 3, 3) f32 -> R (b, 3, 3) f32
-extern "C" int geom_kabsch3_launch(const float* H, float* R, int b, void* stream) {
-  if (b <= 0) return (int)cudaErrorInvalidValue;
-  kabsch3_kernel<<<(b + kJacobiThreads - 1) / kJacobiThreads, kJacobiThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(H, R, b);
+// Once a process, before the first launch and outside any capture: how many
+// clusters of 1, ..., kIcpMaxCluster blocks of icp_kabsch_kernel the card
+// holds at once (max_clusters[c - 1]; 0: that launch could never run), the
+// kernel's registers a thread and its local (spilled) bytes a thread.
+// Returns the cudaError_t.
+extern "C" int geom_icp_kabsch_setup(int* max_clusters, int* regs, int* local_bytes) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, icp_kabsch_kernel);
+  for (int c = 1; err == cudaSuccess && c <= kIcpMaxCluster; ++c) {
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg = cluster_config(cluster, c, c, kIcpThreads, 0, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&max_clusters[c - 1], icp_kabsch_kernel, &cfg);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// One ICP iteration after the search, for b entries of n points against m:
+// source (b, n, 3), moved (b, n, 3) (in, then the next moved out),
+// tgt (b, m, 3), idx (b, n) int64, d2, src_w (b, n), src_total (b,), the
+// threshold and the relative RMSE and fitness criteria (one float each, on
+// the device); T (b, 4, 4), fitness, rmse (b,) and done (b,) bool are read
+// and written in place.  One cluster an entry.
+extern "C" int geom_icp_kabsch_launch(const float* source, float* moved, const float* tgt,
+                                      const int64_t* idx, const float* d2, const float* src_w,
+                                      const float* src_total, const float* threshold,
+                                      const float* rel_rmse, const float* rel_fitness, float* T,
+                                      float* fitness, float* rmse, bool* done, int b, int n, int m,
+                                      void* stream) {
+  if (b <= 0 || n <= 0 || m <= 0 || source == nullptr) return (int)cudaErrorInvalidValue;
+  const int c = icp_cluster_blocks(n);
+  const int range = (n + c - 1) / c;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, c, b * c, kIcpThreads, 0, stream);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, icp_kabsch_kernel, source, moved, tgt, idx, d2,
+                                       src_w, src_total, threshold, rel_rmse, rel_fitness, T,
+                                       fitness, rmse, done, n, m, range);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// C (n, 3, 3) f32 symmetric -> out (n, 3) f32
-extern "C" int geom_sym_eig3_min_launch(const float* C, float* out, int n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  sym_eig3_min_kernel<<<(n + kJacobiThreads - 1) / kJacobiThreads, kJacobiThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(C, out, n);
+// points (n, 3) f32, idx (n, k) int64, 16-byte aligned -> out (n, 3) f32
+extern "C" int geom_pca_normals_launch(const float* points, const int64_t* idx, int n, int k,
+                                       float* out, void* stream) {
+  if (n <= 0 || k <= 0 || k > kPcaMaxK) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  pca_normals_kernel<<<(n + kPcaPoints - 1) / kPcaPoints, kPcaPoints,
+                       kPcaPoints * k * static_cast<int>(sizeof(int64_t)),
+                       static_cast<cudaStream_t>(stream)>>>(points, idx, n, k, out);
   return (int)cudaGetLastError();
 }

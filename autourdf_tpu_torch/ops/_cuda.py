@@ -38,7 +38,7 @@ build_logs: dict[str, str] = {}
 # kernel and nowhere else, so a run can show the main path went through it
 # (the search kernels of knn.cu, then the geometry kernels of geom.cu).
 launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0,
-                 "fps": 0, "kabsch3": 0, "sym_eig3_min": 0}
+                 "fps": 0, "icp_kabsch": 0, "pca_normals": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,8 +63,9 @@ _SIGNATURES = {
         "geom_fps_plan": ([_I, _P], _I),
         "geom_fps_launch": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
         "geom_cluster_barriers_launch": ([_I, _P], _I),
-        "geom_kabsch3_launch": ([_P, _P, _I, _P], _I),
-        "geom_sym_eig3_min_launch": ([_P, _P, _I, _P], _I),
+        "geom_icp_kabsch_setup": ([_P, _P, _P], _I),
+        "geom_icp_kabsch_launch": ([_P] * 14 + [_I, _I, _I, _P], _I),
+        "geom_pca_normals_launch": ([_P, _P, _I, _I, _P, _P], _I),
     },
 }
 

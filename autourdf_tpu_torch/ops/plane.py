@@ -4,12 +4,12 @@ replacements).
 
 RANSAC hypotheses are scored in one batched pass; the draw of the point
 triples is split from the scoring so a caller can supply its own triples.
-Plain PyTorch on the tensors' device, but for the normals' eigenvectors: on
-a CUDA tensor the smallest-eigenvalue eigenvector of every neighbourhood
-covariance comes from one launch of ``sym_eig3_min_kernel``
-(``csrc/geom.cu``), where ``torch.linalg.eigh`` would wait on the host, so
-the normals can sit inside a captured program as they sit inside the JAX
-package's compiled resample.
+Plain PyTorch on the tensors' device, but for the normals' PCA: on a CUDA
+tensor everything after the dense top-k (the neighbours' mean, the centred
+covariance, its smallest-eigenvalue eigenvector and the flip) is one launch
+of ``pca_normals_kernel`` (``csrc/geom.cu``), where ``torch.linalg.eigh``
+would wait on the host, so the normals can sit inside a captured program as
+they sit inside the JAX package's compiled resample.
 """
 
 from __future__ import annotations
@@ -60,57 +60,72 @@ def segment_plane(
 
 
 def _smallest_eigenvector_plain(cov: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``sym_eig3_min_kernel``: the unit eigenvector of the
-    smallest eigenvalue of each symmetric ``(N, 3, 3)``, ``(N, 3)``."""
+    """The unit eigenvector of the smallest eigenvalue of each symmetric
+    ``(N, 3, 3)``, ``(N, 3)`` (its sign is the solver's)."""
     return torch.linalg.eigh(cov)[1][..., 0]
 
 
-def _smallest_eigenvector_cuda(cov: torch.Tensor) -> torch.Tensor:
-    """Replaces ``jnp.linalg.eigh`` in the JAX module's ``estimate_normals``
-    (autourdf_tpu/ops/plane.py:56).  One thread a matrix, fixed sweeps of
-    cyclic Jacobi rotations (csrc/geom.cu)."""
-    if cov.dtype != torch.float32:
-        raise TypeError(f"sym_eig3_min_kernel takes float32, got {cov.dtype}")
-    cov = cov.contiguous()
-    out = torch.empty(cov.shape[:2], dtype=cov.dtype, device=cov.device)
-    lib = _cuda.library("geom")
-    err = _cuda.launch(lib.geom_sym_eig3_min_launch, cov, cov.data_ptr(), out.data_ptr(),
-                       cov.shape[0], _cuda.stream(cov))
-    _cuda.check(err, "sym_eig3_min_kernel launch")
-    _cuda.launch_counts["sym_eig3_min"] += 1
-    return out
-
-
-def smallest_eigenvector(cov: torch.Tensor) -> torch.Tensor:
-    """The unit eigenvector of the smallest eigenvalue of each symmetric
-    ``cov (N, 3, 3)`` (its sign is the solver's): the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if cov.dim() != 3 or cov.shape[1:] != (3, 3) or cov.shape[0] == 0:
-        raise ValueError(f"expected cov (N >= 1, 3, 3), got {tuple(cov.shape)}")
-    if cov.is_cuda:
-        return _smallest_eigenvector_cuda(cov)
-    if cov.device.type != "cpu":
-        raise ValueError(f"unsupported device {cov.device}")
-    return _smallest_eigenvector_plain(cov)
-
-
-def neighbourhood_covariances(points: torch.Tensor, k: int = 30,
-                              chunk: int = 1024) -> torch.Tensor:
-    """``(N, 3, 3)`` covariances (unnormalised) of each point's k nearest
-    neighbours, itself included: a dense top-k over ``chunk`` query rows at
-    a time."""
+def neighbour_indices(points: torch.Tensor, k: int = 30, chunk: int = 1024) -> torch.Tensor:
+    """``(N, k)`` int64 indices of each point's k nearest neighbours, itself
+    included: a dense top-k over ``chunk`` query rows at a time."""
     idx = []
     for a in range(0, points.shape[0], chunk):
         d = torch.sum((points[a:a + chunk, None, :] - points[None, :, :]) ** 2, dim=-1)
         idx.append(torch.topk(d, k, dim=1, largest=False).indices)
-    neigh = points[torch.cat(idx)]                                  # (N, k, 3)
+    return torch.cat(idx)
+
+
+def _pca_normals_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``pca_normals_kernel``: the smallest-eigenvalue
+    eigenvector of each neighbourhood's covariance (unnormalised), flipped
+    towards the +z hemisphere."""
+    neigh = points[idx]                                             # (N, k, 3)
     centered = neigh - torch.mean(neigh, dim=1, keepdim=True)
-    return torch.einsum("nki,nkj->nij", centered, centered)
+    normals = _smallest_eigenvector_plain(torch.einsum("nki,nkj->nij", centered, centered))
+    return torch.where(normals[:, 2:3] < 0, -normals, normals)
+
+
+def _pca_normals_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Replaces the JAX module's covariance, ``jnp.linalg.eigh`` and flip in
+    ``estimate_normals`` (autourdf_tpu/ops/plane.py:79-88).  A point a
+    thread, the block's indices staged into shared memory, cyclic Jacobi
+    sweeps (csrc/geom.cu)."""
+    if points.dtype != torch.float32 or idx.dtype != torch.int64:
+        raise TypeError(f"pca_normals_kernel takes float32 points and int64 indices, got "
+                        f"{points.dtype}, {idx.dtype}")
+    if idx.device != points.device:
+        raise ValueError(f"pca_normals_kernel: idx on {idx.device}, points on {points.device}")
+    points = points.contiguous()
+    idx = idx.contiguous()
+    if idx.data_ptr() % 16:
+        idx = idx.clone()
+    out = torch.empty_like(points)
+    lib = _cuda.library("geom")
+    err = _cuda.launch(lib.geom_pca_normals_launch, points, points.data_ptr(), idx.data_ptr(),
+                       idx.shape[0], idx.shape[1], out.data_ptr(), _cuda.stream(points))
+    _cuda.check(err, "pca_normals_kernel launch")
+    _cuda.launch_counts["pca_normals"] += 1
+    return out
+
+
+def pca_normals(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Unit normals ``(N, 3)`` of ``points (N, 3)`` from PCA over the
+    neighbourhoods ``idx (N, k)``: the smallest-eigenvalue eigenvector of
+    each centred covariance, flipped towards the +z hemisphere.  The kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    if points.dim() != 2 or points.shape[1] != 3 or idx.dim() != 2 \
+            or idx.shape[0] != points.shape[0] or points.shape[0] == 0 or idx.shape[1] == 0:
+        raise ValueError(f"expected points (N >= 1, 3) and idx (N, k >= 1), got "
+                         f"{tuple(points.shape)}, {tuple(idx.shape)}")
+    if points.is_cuda:
+        return _pca_normals_cuda(points, idx)
+    if points.device.type != "cpu":
+        raise ValueError(f"unsupported device {points.device}")
+    return _pca_normals_plain(points, idx)
 
 
 def estimate_normals(points: torch.Tensor, k: int = 30, chunk: int = 1024) -> torch.Tensor:
     """Per-point unit normals ``(N, 3)`` from PCA over the k nearest
     neighbours: the smallest-eigenvalue eigenvector of each 3x3
     neighbourhood covariance, flipped towards the +z hemisphere."""
-    normals = smallest_eigenvector(neighbourhood_covariances(points, k, chunk))
-    return torch.where(normals[:, 2:3] < 0, -normals, normals)
+    return pca_normals(points, neighbour_indices(points, k, chunk))

@@ -24,10 +24,11 @@ CPU):
 - :func:`register_sequence` is the fused driver at ``S = 1``.
 
 Every phase of every configuration is in a program: the ``mlp_icp`` ICP
-phase takes its rotations from ``kabsch3_kernel`` and the ``use_normals``
-resample its normals from ``sym_eig3_min_kernel`` (``csrc/geom.cu``), so
-neither waits on the host.  ``register_sequences_batched(..., eager=True)``
-runs the plain loops, the reference the programs are held against.
+phase runs each iteration's Kabsch step in ``icp_kabsch_kernel`` and the
+``use_normals`` resample its normals in ``pca_normals_kernel``
+(``csrc/geom.cu``), so neither waits on the host.
+``register_sequences_batched(..., eager=True)`` runs the plain loops, the
+reference the programs are held against.
 """
 
 from __future__ import annotations

@@ -41,14 +41,19 @@ Phases, each of which fails the run on error:
    blocks; with one pick; with k above a valid count spread over the
    blocks; with every valid point in one block's range; timed at the
    dataset's and the evaluation's capture shapes beside its step skeleton
-   and k empty cluster barriers), ``kabsch3_kernel`` (B = 100, 5, 18, 1:
-   1e-5 on well-conditioned H, exactly I at H = 0, proper rotations at rank
-   1 and 2 and for reflected H, whose error is printed but not bounded)
-   and ``sym_eig3_min_kernel`` (30-neighbour covariances of one real frame
-   and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest
-   eigenvalues are 10% apart, unit norm to 1e-6), each timed beside its
-   bound, its plain version and its library call (``svd`` + ``det``,
-   ``eigh``; none for the farthest-point pick).  After [3] no path may call
+   and k empty cluster barriers), ``icp_kabsch_kernel``, one ICP
+   iteration after the search in one launch (B x N = 1 x 10,000, 6 x
+   2,250, 2 x 1,024, 100 x 4,988 with 5% of the weights on, 18 x 1,500;
+   masked, no-inlier, empty-gate, reflected, frozen, planar (H of rank 2)
+   and collinear (rank 1) entries: T to 1e-5 where the rotation is unique
+   (all but the collinear), the next moved cloud to 1e-5, fitness equal,
+   RMSE to 1e-5 relative, proper rotations to 1e-6, T kept where there is
+   nothing to fit or the entry is frozen) and ``pca_normals_kernel``, the
+   normals after the top-k in one launch (30-neighbourhoods of one real
+   frame and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest eigenvalues
+   are 10% apart, the same sign where |n_z| > 1e-3, unit norm to 1e-6, n_z
+   >= 0), each timed beside its bound and its plain version (no one PyTorch
+   call computes any of the three).  After [3] no path may call
    ``torch.linalg.svd``, ``det`` or ``eigh`` on a CUDA tensor;
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
@@ -62,8 +67,8 @@ Phases, each of which fails the run on error:
 7. ``run_registration(mlp_icp=True, use_normals=True)`` with FPS seeds on the
    first 2 sequences x 4 frames of the same scans, its ICP phase and normals
    resample as programs; check the launches of the ICP's search and Kabsch
-   kernels, of the eigenvector kernel and of the farthest-point pick, the
-   captures and the loss;
+   step kernels, of the normals kernel and of the farthest-point pick, the
+   captures (their graph nodes printed) and the loss;
 8. the large-cloud path: one sequence of 3 frames of a synthetic 3-link
    hinged chain at 20,000 points per frame through ``run_registration``;
    check that every search took the accumulator kernel, and the loss;
@@ -124,9 +129,11 @@ Phases, each of which fails the run on error:
     programs and the fused frame-pair program; phase 9b's chain fit for 120
     steps eager and in 50-step programs; the first link ICP of [6], polish
     ICP of [10] and resim ICP of [11] on their own arguments, eager, in a
-    fresh program and replayed (wall ms of each); every output must be equal
-    bit for bit and every program's capture and instantiation seconds, graph
-    nodes and pool bytes are printed.
+    fresh program and replayed (wall ms of each), and against the plain loop
+    (its step in plain PyTorch) on the card, T to 1e-4; every output of a
+    program must equal the eager loop's bit for bit and every program's
+    capture and instantiation seconds, graph nodes and pool bytes are
+    printed.
 
 The main path of phases 4, 4c, 9, 11 and 14 runs the programs (phase 4
 prints its captures).  Phase 4b times a training epoch and phase 9b a
@@ -199,12 +206,8 @@ RESIM_SHAPE = (1, 10000, 10000)
 # captured in
 WX200_ESTIMATE = os.path.join("data_ab5", "urdf", "wx200_5_20_seg", "4_deg_20_cams.urdf")
 CLOSED_LOOP_SEQS, CLOSED_LOOP_FRAMES, CLOSED_LOOP_POINTS = 5, 10, 5000
-# fp32 operations of the geometry kernels (csrc/geom.cu), for their bounds:
-# a farthest-point step a valid point (3 subtracts, 3 multiplies, 2 adds, the
-# minimum, the key's compare); a Kabsch matrix (18 one-sided Jacobi steps of
-# 64: the pair's Gram entries 15, the rotation 13, two columns of B and V
-# rotated 36; the column order 30, the Givens QR 126, R = V U^T 45); an
-# eigenvector (18 two-sided steps of 42, the normalisation 12)
+# fp32 operations of a farthest-point step a valid point (3 subtracts, 3
+# multiplies, 2 adds, the minimum, the key's compare), for its bound
 FPS_OPS_PER_POINT = 10
 # [3]: a cloud whose 16 blocks' ranges (25,001 points each) overflow their
 # shared memory (about 12,900 points a block), so every block streams the
@@ -213,8 +216,27 @@ FPS_OPS_PER_POINT = 10
 FPS_OVERFLOW_N, FPS_WIDE_N = 400003, 1100003
 # picks of an evaluation capture (400 px), timed beside the dataset's
 FPS_EVAL_POINTS = 10000
-KABSCH_OPS_PER_MATRIX = 18 * 64 + 30 + 126 + 45
-EIG_OPS_PER_MATRIX = 18 * 42 + 12
+# [3]: the ICP sites' shapes, (B entries, N points against as many): resim,
+# link, polish, --mlp_icp (S K = 5 x 20 clusters, about 5% of the weights
+# on), a 14-link build's link ICP
+ICP_STEP_SHAPES = ((1, 10000), (6, 2250), (2, 1024), (100, 4988), (18, 1500))
+ICP_MLP_DENSITY = 0.05
+# _icp_step_case's kinds of entry whose H has rank 2 and rank 1
+ICP_PLANAR, ICP_COLLINEAR = 6, 7
+# the fused Kabsch step against its plain version: T and moved (the same
+# correspondences; a Jacobi SVD against the solver's, sums in another
+# order), RMSE relative
+ICP_T_ATOL, ICP_RMSE_RTOL = 1e-5, 1e-5
+# [15]: a site's whole ICP (30 or 50 iterations) with the kernel against the
+# plain loop on the card, T
+SITE_ICP_T_ATOL = 1e-4
+# bytes a point of the fused Kabsch step: moved 12, index 8, the gathered
+# match 12, d2 4, weight 4, the source read and the next moved written 24;
+# fp32 operations a point: the gate 4, pass 1 15, pass 2 27, the next moved
+# 18 (the 3x3 work, some 1,600 an entry, is below the bound's precision)
+ICP_STEP_BYTES_PER_POINT, ICP_STEP_OPS_PER_POINT = 64, 64
+# the normals' neighbours (registration/pipeline.py, segments.py)
+PCA_K = 30
 
 
 # the kernel sources of autourdf_tpu_torch/csrc that phase 2 builds
@@ -988,48 +1010,79 @@ def _ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
-def _cross_covariances(B: int, seed: int) -> tuple[torch.Tensor, np.ndarray]:
-    """``(B, 3, 3)`` float32 matrices, by ``kind``: 0 well-conditioned
-    (sigma_2 - sigma_3 > 1e-3 sigma_1), 1 the same reflected (det < 0), 2
-    rank 2, 3 rank 1, 4 zero; with B = 1 a well-conditioned one."""
+def _rotvecs(v: np.ndarray) -> np.ndarray:
+    """``(B, 3, 3)`` rotations of the rotation vectors ``v (B, 3)``
+    (Rodrigues)."""
+    angle = np.linalg.norm(v, axis=1)[:, None, None]
+    k = v / np.maximum(angle[:, :, 0], 1e-30)
+    K = np.zeros((len(v), 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def _icp_step_case(dev, B: int, n: int, density: float, seed: int):
+    """One ICP step's inputs on the card, as ``tests/torch_geom_models.py
+    icp_step_inputs`` makes them: entry e of kind e % 8, 0 dense, 1 masked
+    (half the weights), 2 no inlier (the target 5 away), 3 the cloud mirrored
+    about its centre (a reflected H), 4 frozen (done), 5 an empty gate
+    (every target a sentinel), 6 planar (z = 0: H of rank 2, a flat link
+    face), 7 collinear (y = z = 0: rank 1, a thin cluster; its rotation
+    about the line is free); every weight kept with probability
+    ``density``.  The correspondences are the identity and d2 their squared
+    distances.  Returns ``(args, state, kind)``: ``ops/icp.py
+    kabsch_step(*args, *state)``, state = (T, fitness, rmse, done)."""
+    from autourdf_tpu_torch.ops.knn import PAD_COORD
+
     rng = np.random.default_rng(seed)
+    kind = np.arange(B) % 8
+    src = rng.normal(scale=[0.12, 0.08, 0.05], size=(B, n, 3)) + rng.normal(0, 0.3, (B, 1, 3))
+    src[kind == ICP_PLANAR, :, 2] = 0.0
+    src[kind == ICP_COLLINEAR, :, 1:] = 0.0
+    tgt = np.einsum("bij,bnj->bni", _rotvecs(rng.normal(0, 0.1, (B, 3))), src)
+    tgt += rng.normal(0, 0.01, (B, 1, 3))
+    centre = src.mean(1, keepdims=True)
+    tgt[kind == 3] = ((src - centre) * [1.0, 1.0, -1.0] + centre)[kind == 3]
+    tgt += rng.normal(0, 2e-3, tgt.shape)
+    tgt[kind == 2] += 5.0
+    tgt[kind == 5] = PAD_COORD
+    w = rng.random((B, n)) < density
+    w[kind == 1] &= rng.random((int((kind == 1).sum()), n)) < 0.5
+    T = np.tile(np.eye(4), (B, 1, 1))
+    T[:, :3, :3] = _rotvecs(rng.normal(0, 1.0, (B, 3)))
+    T[:, :3, 3] = rng.normal(0, 0.2, (B, 3))
+    source = np.einsum("bji,bnj->bni", T[:, :3, :3], src - T[:, None, :3, 3])
+    src, tgt, source, T, w = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                              for a in (src, tgt, source, T, w))
+    crit = tuple(torch.full((), v, device=dev) for v in (0.25, 1e-6, 1e-6))
+    args = (source, src, tgt, torch.arange(n, device=dev).repeat(B, 1),
+            torch.sum((src - tgt) ** 2, dim=-1), w, torch.clamp_min(w.sum(1), 1e-12), crit)
+    state = (T, torch.full((B,), 0.5, device=dev), torch.full((B,), 0.01, device=dev),
+             torch.from_numpy(kind == 4).to(dev))
+    return args, state, kind
 
-    def rotations():
-        q = rng.normal(size=(B, 4))
-        q /= np.linalg.norm(q, axis=1, keepdims=True)
-        w, x, y, z = q.T
-        return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-                         2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-                         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-                        axis=1).reshape(B, 3, 3)
 
-    sv = np.sort(rng.uniform(0.2, 3.0, (B, 3)), axis=1)[:, ::-1].copy()
-    sv[:, 2] = np.minimum(sv[:, 2], sv[:, 1] - 0.01 * sv[:, 0])
-    kind = np.arange(B) % 5
-    sv[kind == 1, 2] *= -1
-    sv[kind == 2, 2] = 0.0
-    sv[kind == 3, 1:] = 0.0
-    sv[kind == 4] = 0.0
-    H = np.einsum("bij,bj,bkj->bik", rotations(), sv, rotations()).astype(np.float32)
-    return torch.from_numpy(H), kind
-
-
-def _separated(C: torch.Tensor) -> torch.Tensor:
-    """Covariances whose two smallest eigenvalues are more than 10% apart
-    (and apart by more than the fp32 round-off of the matrix, 1e-4 of its
-    largest eigenvalue), from float64 eigenvalues on the CPU."""
-    e = torch.linalg.eigvalsh(C.detach().cpu().double())
+def _separated(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbourhoods whose two smallest eigenvalues (of the centred
+    covariance, float64 on the CPU) are more than 10% apart (and apart by
+    more than the fp32 round-off of the matrix, 1e-4 of its largest
+    eigenvalue)."""
+    nb = points.detach().cpu().double()[idx.cpu()]
+    c = nb - nb.mean(1, keepdim=True)
+    e = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", c, c))
     gap = e[:, 1] - e[:, 0]
     return (gap > 0.1 * e[:, 1]) & (gap > 1e-4 * e[:, 2])
 
 
 def check_geom_kernels(dev, frame: np.ndarray) -> dict:
     """Phase 3 for csrc/geom.cu: farthest-point sampling (identical picks),
-    the Kabsch rotation (1e-5 on well-conditioned H, exactly I at H = 0,
-    proper rotations at rank 1 and 2 and for reflections) and the smallest
-    eigenvector (|dot| > 1 - 1e-4 where separated, unit norm to 1e-6)
-    against their plain versions on the card, then their times at the main
-    path's shapes.  ``frame`` is one real scan (its valid points)."""
+    the ICP's fused Kabsch step at the ICP sites' shapes (T to 1e-5 but at
+    rank 1, fitness equal, RMSE to 1e-5 relative, moved to 1e-5, proper
+    rotations to 1e-6, masked, no-inlier, empty-gate, reflected, frozen,
+    planar and collinear entries) and the
+    fused normals (|dot| > 1 - 1e-4 where separated, unit norm to 1e-6, n_z
+    >= 0) against their plain versions on the card, then their times at the
+    main path's shapes.  ``frame`` is one real scan (its valid points)."""
     from autourdf_tpu_torch.ops import _cuda, fps, icp, plane
     from autourdf_tpu_torch.sim import KinematicEnv
     from autourdf_tpu_torch.sim.capture import visible_mask
@@ -1094,58 +1147,114 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
         if not same:
             _fail(f"fps_kernel disagrees with its plain version ({label})")
 
-    # -- kabsch3_kernel
-    kabsch_err = 0.0
-    for B in (100, 5, 18, 1):
-        H, kind = _cross_covariances(B, 40 + B)
-        H = H.to(dev)
-        R = icp.kabsch_rotation(H)
-        ref = icp._kabsch_rotation_plain(H)
-        good = torch.from_numpy(kind == 0).to(dev)
-        err = float((R - ref).abs()[good].max())
-        flip = torch.from_numpy(kind == 1).to(dev)
-        err_flip = float((R - ref).abs()[flip].max()) if bool(flip.any()) else 0.0
-        zero = torch.from_numpy(kind == 4).to(dev)
-        ident = torch.equal(R[zero], torch.eye(3, device=dev).expand(int(zero.sum()), 3, 3))
-        Rd = R.double()
-        orth = float((Rd @ Rd.transpose(-1, -2) - torch.eye(3, device=dev, dtype=torch.float64))
-                     .abs().max())
-        det = float((torch.linalg.det(Rd) - 1).abs().max())
-        kabsch_err = max(kabsch_err, err)
-        print(f"  kabsch3      B={B}: max |R - plain| {err:.3g} (tol 1e-5) on the well-conditioned "
-              f"H, {err_flip:.3g} on the reflected (held to be rotations); H = 0 gives I exactly "
-              f"{ident}; all: max |R R^T - I| {orth:.3g}, max |det R - 1| {det:.3g} (tol 1e-6)")
-        if not (err <= 1e-5 and ident and orth <= 1e-6 and det <= 1e-6):
-            _fail(f"kabsch3_kernel disagrees with its plain version (B={B})")
+    # -- icp_kabsch_kernel: one launch a step, one cluster an entry
+    setup = icp.cluster_setup(dev)
+    print(f"  icp_kabsch_kernel: clusters of 1..8 blocks x 256 threads, the card holds "
+          f"{setup.max_clusters} of each size at once; {setup.registers} registers a thread, "
+          f"{setup.local_bytes} local bytes; ptxas:")
+    for ln in _ptxas_lines(_cuda.build_logs.get("geom", ""), "icp_kabsch_kernel"):
+        print(f"    {ln}")
+    if setup.local_bytes:
+        _fail(f"icp_kabsch_kernel spills: {setup.local_bytes} local bytes a thread")
+    step_err, step_times = 0.0, {}
+    for B, n in ICP_STEP_SHAPES:
+        density = ICP_MLP_DENSITY if B == 100 else 1.0
+        args, state, kind = _icp_step_case(dev, B, n, density, seed=B + n)
+        got = [t.clone() for t in state]
+        ref = [t.clone() for t in state]
+        before = _cuda.launch_counts["icp_kabsch"]
+        moved = icp.kabsch_step(args[0], args[1].clone(), *args[2:], *got)
+        launched = _cuda.launch_counts["icp_kabsch"] - before
+        ref_moved = icp._kabsch_step_plain(*args, *ref)
+        unique = torch.from_numpy(kind != ICP_COLLINEAR).to(dev)
+        err = float((got[0] - ref[0]).abs()[unique].max())
 
-    # -- sym_eig3_min_kernel
-    eig_err = 0.0
+        def err_of(k):
+            sel = torch.from_numpy(kind == k).to(dev)
+            return float((got[0] - ref[0]).abs()[sel].max()) if bool(sel.any()) else None
+        err_refl, err_planar = err_of(3), err_of(ICP_PLANAR)
+        fit_eq = torch.equal(got[1], ref[1]) and torch.equal(got[3], ref[3])
+        rmse_ok = bool(((got[2] - ref[2]).abs() <= ICP_RMSE_RTOL * ref[2].abs()).all())
+        rmse_rel = float(((got[2] - ref[2]).abs() / ref[2].abs().clamp_min(1e-30)).max())
+        moved_err = float((moved - ref_moved).abs().max())
+        R = got[0][:, :3, :3].double()
+        orth_all = (R @ R.transpose(-1, -2) - torch.eye(3, device=dev, dtype=torch.float64)).abs()
+        det_all = (torch.linalg.det(R) - 1).abs()
+        orth, det = float(orth_all.max()), float(det_all.max())
+        low_rank = torch.from_numpy(np.isin(kind, (ICP_PLANAR, ICP_COLLINEAR))).to(dev)
+        proper_low = (f"planar and collinear: max |R R^T - I| "
+                      f"{float(orth_all[low_rank].max()):.3g}, |det R - 1| "
+                      f"{float(det_all[low_rank].max()):.3g}"
+                      if bool(low_rank.any()) else "no planar or collinear entry")
+        kept_idx = torch.from_numpy(np.isin(kind, (2, 4, 5))).to(dev)
+        kept = torch.equal(got[0][kept_idx], state[0][kept_idx])
+        empty = torch.from_numpy(np.isin(kind, (2, 5))).to(dev)
+        zeros = not bool(got[1][empty].any() or got[2][empty].any())
+        step_err = max(step_err, err)
+        print(f"  icp_kabsch   B={B} N=M={n} ({icp.cluster_blocks(n)} blocks a cluster, weights "
+              f"{density:g}): max |T - plain| {err:.3g} (tol {ICP_T_ATOL}, all but the "
+              f"collinear; reflected H {err_refl}, planar {err_planar}), fitness and done equal "
+              f"{fit_eq}, max RMSE rel err {rmse_rel:.3g} (tol {ICP_RMSE_RTOL}), max |moved - "
+              f"plain| {moved_err:.3g} (tol {ICP_T_ATOL}); max |R R^T - I| {orth:.3g}, |det R - 1| "
+              f"{det:.3g} (tol 1e-6; {proper_low}); no-inlier, empty-gate and frozen entries "
+              f"keep T {kept}, fitness = RMSE = 0 {zeros}; launches {launched}")
+        if not (launched == 1 and err <= ICP_T_ATOL and fit_eq and rmse_ok
+                and moved_err <= ICP_T_ATOL and orth <= 1e-6 and det <= 1e-6 and kept and zeros):
+            _fail(f"icp_kabsch_kernel disagrees with its plain step (B={B}, N={n})")
+        st = [t.clone() for t in state]
+        mv = args[1].clone()
+        step = lambda: icp.kabsch_step(args[0], mv, *args[2:], *st)  # noqa: E731
+        step_times[f"B={B} N={n}"] = t = dict(
+            ms=_time_ms(step), device_ms=_device_ms(step),
+            plain_ms=_time_ms(lambda: icp._kabsch_step_plain(*args, *st), reps=5),
+            bound_ms=1e3 * max(B * n * ICP_STEP_BYTES_PER_POINT / PEAK_BYTES_PER_S,
+                               B * n * ICP_STEP_OPS_PER_POINT / PEAK_FP32_FLOPS))
+        print(f"  time icp_kabsch B={B} N={n}: wrapper {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms); plain step {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.6f} ms (bytes)")
+
+    # the fixed cost of a step: one entry of 32 points (the launch, both
+    # passes' reductions and cluster barriers, the 3x3 chain of one thread)
+    args, state, _ = _icp_step_case(dev, 1, 32, 1.0, seed=0)
+    st, mv = [t.clone() for t in state], args[1].clone()
+    skeleton_ms = _device_ms(lambda: icp.kabsch_step(args[0], mv, *args[2:], *st))
+    print(f"  time icp_kabsch skeleton (B=1, N=32): device {skeleton_ms:.4f} ms")
+
+    # -- pca_normals_kernel
+    normals_err = 0.0
     chain = torch.from_numpy(articulated_chain_frames(1, LARGE_N)[0]).to(dev)
     for label, pts in (("one real frame", torch.from_numpy(frame).to(dev)),
                        ("20,000-point chain", chain)):
-        C = plane.neighbourhood_covariances(pts, 30)
-        v = plane.smallest_eigenvector(C)
-        ref = plane._smallest_eigenvector_plain(C)
-        sep = _separated(C).to(dev)
+        idx = plane.neighbour_indices(pts, PCA_K)
+        before = _cuda.launch_counts["pca_normals"]
+        v = plane.pca_normals(pts, idx)
+        launched = _cuda.launch_counts["pca_normals"] - before
+        ref = plane._pca_normals_plain(pts, idx)
+        sep = _separated(pts, idx).to(dev)
         dots = (v * ref).sum(1)
+        worst = float(1 - dots.abs()[sep].min())
         aligned = torch.where(dots[:, None] < 0, -v, v)
         err = float((aligned - ref).abs()[sep].max())
-        worst = float(1 - dots.abs()[sep].min())
+        steep = sep & (ref[:, 2].abs() > 1e-3)
+        flips = int((dots[steep] < 0).sum())
         unit = float((v.norm(dim=1) - 1).abs().max())
-        eig_err = max(eig_err, err)
-        print(f"  sym_eig3_min {label}: N={pts.shape[0]}, {int(sep.sum())} separated: 1 - min |dot| "
-              f"{worst:.3g} (tol 1e-4), max |v - plain| (sign aligned) {err:.3g}; max |norm - 1| "
-              f"{unit:.3g} (tol 1e-6)")
-        if not (worst < 1e-4 and unit <= 1e-6):
-            _fail(f"sym_eig3_min_kernel disagrees with its plain version ({label})")
+        up = bool((v[:, 2] >= 0).all())
+        normals_err = max(normals_err, err)
+        print(f"  pca_normals  {label}: N={pts.shape[0]}, k={PCA_K}, {int(sep.sum())} separated: "
+              f"1 - min |dot| {worst:.3g} (tol 1e-4), max |v - plain| (sign aligned) {err:.3g}; "
+              f"opposite signs where |n_z| > 1e-3: {flips}; max |norm - 1| {unit:.3g} (tol 1e-6); "
+              f"n_z >= 0 {up}; launches {launched}")
+        if not (launched == 1 and worst < 1e-4 and flips == 0 and unit <= 1e-6 and up):
+            _fail(f"pca_normals_kernel disagrees with its plain version ({label})")
 
     # -- times at the main path's shapes
     n_vis = int(vis.sum())
-    H, _ = _cross_covariances(100, 7)
-    H = H.to(dev)
-    C = plane.neighbourhood_covariances(torch.from_numpy(frame).to(dev), 30)
-    N = C.shape[0]
+    fr = torch.from_numpy(frame).to(dev)
+    fr_idx = plane.neighbour_indices(fr, PCA_K)
+    N = fr.shape[0]
     P, k = surface.shape[0], CLOSED_LOOP_POINTS
+    B, n = ICP_STEP_SHAPES[3]
+    mlp = step_times[f"B={B} N={n}"]
 
     def bound(ops: float, nbytes: float) -> tuple[float, str]:
         t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -1155,6 +1264,9 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
     fps_eval["shape"] = f"N={P} ({int(vis400.sum())} visible) k={FPS_EVAL_POINTS}"
     fps_eval["bound_ms"] = bound((FPS_EVAL_POINTS - 1) * int(vis400.sum()) * FPS_OPS_PER_POINT,
                                  P * (12 + 1) + FPS_EVAL_POINTS * 8)[0]
+    fps_eval["plain_ms"] = _time_ms(lambda: fps._fps_plain(surface, FPS_EVAL_POINTS, vis400),
+                                    reps=2, warm=1)
+    print(f"  time fps     {fps_eval['shape']}: plain {fps_eval['plain_ms']:.4f} ms")
     timing = {
         "fps": dict(
             **_fps_times(dev, surface, vis, k),
@@ -1163,20 +1275,18 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
             bound=bound((k - 1) * n_vis * FPS_OPS_PER_POINT, P * (12 + 1) + k * 8),
             shape=f"N={P} ({n_vis} visible) k={k}", max_abs_err=fps_err,
             at_eval_shape=fps_eval),
-        "kabsch3": dict(
-            ms=_time_ms(lambda: icp.kabsch_rotation(H)),
-            device_ms=_device_ms(lambda: icp.kabsch_rotation(H)),
-            plain_ms=_time_ms(lambda: icp._kabsch_rotation_plain(H)),
-            library_ms=_time_ms(lambda: (torch.linalg.svd(H), torch.linalg.det(H))),
-            bound=bound(100 * KABSCH_OPS_PER_MATRIX, 100 * 2 * 36),
-            shape="B=100", max_abs_err=kabsch_err),
-        "sym_eig3_min": dict(
-            ms=_time_ms(lambda: plane.smallest_eigenvector(C)),
-            device_ms=_device_ms(lambda: plane.smallest_eigenvector(C)),
-            plain_ms=_time_ms(lambda: plane._smallest_eigenvector_plain(C)),
-            library_ms=_time_ms(lambda: torch.linalg.eigh(C)),
-            bound=bound(N * EIG_OPS_PER_MATRIX, N * (36 + 12)),
-            shape=f"N={N}", max_abs_err=eig_err),
+        "icp_kabsch": dict(
+            ms=mlp["ms"], device_ms=mlp["device_ms"], plain_ms=mlp["plain_ms"], library_ms=None,
+            bound=bound(B * n * ICP_STEP_OPS_PER_POINT, B * n * ICP_STEP_BYTES_PER_POINT),
+            shape=f"B={B} N=M={n}, weights {ICP_MLP_DENSITY:g}", max_abs_err=step_err,
+            at_shapes=step_times, skeleton_ms=skeleton_ms),
+        "pca_normals": dict(
+            ms=_time_ms(lambda: plane.pca_normals(fr, fr_idx)),
+            device_ms=_device_ms(lambda: plane.pca_normals(fr, fr_idx)),
+            plain_ms=_time_ms(lambda: plane._pca_normals_plain(fr, fr_idx)),
+            library_ms=None,
+            bound=bound(N * (21 * PCA_K + 770), N * (8 * PCA_K + 12 + 12)),
+            shape=f"N={N} k={PCA_K}", max_abs_err=normals_err),
     }
     for name, t in timing.items():
         lib = "none (no one PyTorch call)" if t["library_ms"] is None else \
@@ -1187,14 +1297,21 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
     return timing
 
 
+# True while a comparison with a plain version may call PyTorch's solvers on
+# the card (see _solvers_allowed)
+_SOLVERS_OPEN = [False]
+
+
 def _forbid_cuda_solvers() -> list:
     """Wrap ``torch.linalg.svd``, ``det`` and ``eigh`` so that a call on a
-    CUDA tensor is recorded (in the returned list) and raises."""
+    CUDA tensor is recorded (in the returned list) and raises, but inside
+    ``_solvers_allowed``."""
     calls: list = []
 
     def guard(name, fn):
         def call(*a, **kw):
-            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in (*a, *kw.values())):
+            if not _SOLVERS_OPEN[0] and any(isinstance(t, torch.Tensor) and t.is_cuda
+                                            for t in (*a, *kw.values())):
                 calls.append(name)
                 raise RuntimeError(f"torch.linalg.{name} on a CUDA tensor")
             return fn(*a, **kw)
@@ -1203,6 +1320,17 @@ def _forbid_cuda_solvers() -> list:
     for name in ("svd", "det", "eigh"):
         setattr(torch.linalg, name, guard(name, getattr(torch.linalg, name)))
     return calls
+
+
+@contextlib.contextmanager
+def _solvers_allowed():
+    """The plain versions (``svd``, ``det``, ``eigh``) may run on the card
+    in this block: a comparison, not a path."""
+    _SOLVERS_OPEN[0] = True
+    try:
+        yield
+    finally:
+        _SOLVERS_OPEN[0] = False
 
 
 def run_main_path(dev, gpu_line: str, root: str) -> dict:
@@ -1383,14 +1511,14 @@ def run_icp_path(dev, root: str) -> dict:
           f"{stats['seconds']:.3f} s; mean raw Chamfer {raw_mean:.6f}, mean loss "
           f"{stats['mean_loss']:.6f}")
     print(f"  launches: {counts} (ICP: {T - 1} pairs x {ICP_ITERATIONS} iterations, one launch "
-          f"of nn and one of kabsch3 for the whole batch of {S} x {cfg.num_segments()} "
+          f"of nn and one of icp_kabsch for the whole batch of {S} x {cfg.num_segments()} "
           f"clusters; normals: the segmentation's frame, then each pair's {S} targets; FPS "
           f"seeds: one pick); the registration's programs:")
     _print_captures(programs.captures[made:])
     if frames.shape[:2] != (S, T):
         _fail(f"expected {S} sequences x {T} frames, got {frames.shape[:2]}")
-    expected = {"nn": (T - 1) * ICP_ITERATIONS, "kabsch3": (T - 1) * ICP_ITERATIONS,
-                "sym_eig3_min": 1 + (T - 1) * S, "fps": 1}
+    expected = {"nn": (T - 1) * ICP_ITERATIONS, "icp_kabsch": (T - 1) * ICP_ITERATIONS,
+                "pca_normals": 1 + (T - 1) * S, "fps": 1}
     for k, n in expected.items():
         if counts[k] != n:
             _fail(f"{k} launched {counts[k]} times, expected {n}")
@@ -1981,7 +2109,7 @@ def run_closed_loop(dev, root: str) -> dict:
     if [r["stage"] for r in records] != ["dataset", "register", "build_urdf", "evaluate"]:
         _fail(f"telemetry records {[r['stage'] for r in records]}")
     print(f"  launches: {counts}")
-    for k in ("nn_bidir", "nn_bidir_acc", "nn_min_bidir", "nn", "fps", "kabsch3"):
+    for k in ("nn_bidir", "nn_bidir_acc", "nn_min_bidir", "nn", "fps", "icp_kabsch"):
         if counts[k] < 1:
             _fail(f"the closed loop did not launch {k}")
     # a capture a frame of each sequence kept or tried, the evaluation's two a
@@ -2810,15 +2938,39 @@ def _check_site_icps(dev, records: dict, launched: dict) -> None:
         same = all(all(torch.equal(a, b) for a, b in zip(outs[n], outs["eager"]))
                    for n in ("capture", "replay"))
         same_run = all(torch.equal(a, b) for a, b in zip(in_run, outs["eager"]))
+        counts = dict(_cuda.launch_counts)      # the plain loop is a comparison, not a path
+        with _plain_icp_step():
+            plain = icp_point_to_point(*args, eager=True, **kw)
+        _cuda.launch_counts.update(counts)
+        gaps = [float((a - b).abs().max()) for a, b in zip(outs["eager"], plain)]
         shape = tuple(args[0].shape)
         print(f"  {site} ICP {shape} against {tuple(args[1].shape)}, "
               f"{kw.get('max_iterations', 50)} iterations: program equal to the eager loop "
               f"{same}, the run's result equal {same_run}; eager {times['eager']:.3f} ms, "
               f"program {times['capture']:.3f} ms with its capture, {times['replay']:.3f} ms "
-              f"replayed; launches {launched[f'{site} ICP replay']}")
+              f"replayed; launches {launched[f'{site} ICP replay']}; against the plain loop on "
+              f"the card (its step in plain PyTorch): max |T diff| {gaps[0]:.3g} (tol "
+              f"{SITE_ICP_T_ATOL}), fitness {gaps[1]:.3g}, RMSE {gaps[2]:.3g}")
         if not (same and same_run) or len({str(launched[f"{site} ICP {n}"])
                                              for n in ("eager", "capture", "replay")}) != 1:
             _fail(f"the {site} ICP's program differs from its eager loop")
+        if not gaps[0] <= SITE_ICP_T_ATOL:
+            _fail(f"the {site} ICP differs from the plain loop on the card by {gaps[0]}")
+
+
+@contextlib.contextmanager
+def _plain_icp_step():
+    """In this block the ICP loop takes its plain step (``svd``, ``det``) in
+    place of ``icp_kabsch_kernel``."""
+    from autourdf_tpu_torch.ops import icp
+
+    kernel = icp.kabsch_step
+    icp.kabsch_step = icp._kabsch_step_plain
+    try:
+        with _solvers_allowed():
+            yield
+    finally:
+        icp.kabsch_step = kernel
 
 
 def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
@@ -2889,8 +3041,8 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
         if launched["eager"]["nn_bidir"] != expected:
             _fail(f"the eager registration launched nn_bidir {launched['eager']['nn_bidir']} "
                   f"times ({label})")
-        if options and launched["eager"]["kabsch3"] != (T - 1) * ICP_ITERATIONS:
-            _fail(f"the eager registration launched kabsch3 {launched['eager']['kabsch3']} "
+        if options and launched["eager"]["icp_kabsch"] != (T - 1) * ICP_ITERATIONS:
+            _fail(f"the eager registration launched icp_kabsch {launched['eager']['icp_kabsch']} "
                   f"times ({label})")
 
     cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
@@ -3026,9 +3178,9 @@ def main() -> int:
                "nn": "autourdf_tpu/ops/knn.py:54",
                "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233",
                "fps": "autourdf_tpu/ops/fps.py:17",
-               "kabsch3": "autourdf_tpu/ops/icp.py:50",
-               "sym_eig3_min": "autourdf_tpu/ops/plane.py:56"}
-    files = {k: "autourdf_tpu_torch/csrc/geom.cu" if k in ("fps", "kabsch3", "sym_eig3_min")
+               "icp_kabsch": "autourdf_tpu/ops/icp.py:50 (_kabsch) + :102-121 (step)",
+               "pca_normals": "autourdf_tpu/ops/plane.py:79-88 (estimate_normals)"}
+    files = {k: "autourdf_tpu_torch/csrc/geom.cu" if k in ("fps", "icp_kabsch", "pca_normals")
              else "autourdf_tpu_torch/csrc/knn.cu" for k in sources}
     kernels = []
     chain_shape = timing.pop("chain")
@@ -3048,7 +3200,7 @@ def main() -> int:
             kernels[-1]["at_chain_shape"] = chain_shape[kname]
         if kname in resim_shape:
             kernels[-1]["at_resim_shape"] = resim_shape[kname]
-        for extra in ("skeleton_ms", "barrier_floor_ms", "at_eval_shape"):
+        for extra in ("skeleton_ms", "barrier_floor_ms", "at_eval_shape", "at_shapes"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         if kernels[-1]["launches"] < 1:

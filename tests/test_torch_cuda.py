@@ -692,77 +692,73 @@ def test_fps_cluster_setup_on_card(cuda):
     assert cap < 25001 and nbytes <= setup.shared_max
 
 
-def _cross_covariances(B: int, seed: int):
-    """Well-conditioned (sigma_2 - sigma_3 > 1e-2 sigma_1), reflected,
-    rank-2, rank-1 and zero 3x3 matrices (a fifth of each), float32."""
-    from scipy.spatial.transform import Rotation as ScipyRot
-
-    rng = np.random.default_rng(seed)
-    sv = np.sort(rng.uniform(0.2, 3.0, (B, 3)), axis=1)[:, ::-1].copy()
-    sv[:, 2] = np.minimum(sv[:, 2], sv[:, 1] - 0.01 * sv[:, 0])
-    kind = np.arange(B) % 5
-    sv[kind == 1, 2] *= -1
-    sv[kind == 2, 2] = 0.0
-    sv[kind == 3, 1:] = 0.0
-    sv[kind == 4] = 0.0
-    U = ScipyRot.random(B, random_state=seed).as_matrix()
-    V = ScipyRot.random(B, random_state=seed + 1).as_matrix()
-    H = np.einsum("bij,bj,bkj->bik", U, sv, V).astype(np.float32)
-    return torch.from_numpy(H), kind, sv
-
-
-@pytest.mark.parametrize("B", [1, 7, 18, 100, 1000])
-def test_kabsch3_kernel_on_card(cuda, B):
-    """kabsch3_kernel against its plain version (svd + det) on well-conditioned
-    H (1e-5), exactly I at H = 0, a proper rotation for reflections and at
-    rank 1 and 2 (|R R^T - I| and |det R - 1| at most 1e-6), and equal to
-    its model (tests/torch_geom_models.py) bit for bit."""
+@pytest.mark.parametrize("B,n", [(1, 10000), (6, 2250), (2, 1024), (100, 4988), (18, 1500),
+                                 (2, 20000)])
+def test_icp_kabsch_kernel_on_card(cuda, B, n):
+    """icp_kabsch_kernel (one launch) against its plain step (svd + det) at
+    the ICP sites' shapes, and at 20,000 points (beyond a thread's 8 points
+    in registers: the rest read again in the second pass), with masked,
+    no-inlier, empty-gate, reflected, frozen, planar (H of rank 2) and, at
+    B = 18 and 100, collinear (rank 1) entries: T to 1e-5 where the rotation
+    is unique (all but the collinear), fitness equal, RMSE to 1e-5
+    relative, the next moved cloud to 1e-5, the rotation proper to 1e-6;
+    entries with nothing to fit or frozen keep T; and equal to its model
+    (tests/torch_geom_models.py) bit for bit."""
     from autourdf_tpu_torch.ops import icp
-    from torch_geom_models import kabsch3_model
+    from torch_geom_models import ICP_COLLINEAR, icp_kabsch_model, icp_step_inputs
 
-    H, kind, _ = _cross_covariances(B, 30 + B)
-    before = _cuda.launch_counts["kabsch3"]
-    R = icp.kabsch_rotation(H.to(cuda))
-    assert _cuda.launch_counts["kabsch3"] == before + 1
-    ref = icp._kabsch_rotation_plain(H.to(cuda))
-    good = torch.from_numpy(kind == 0).to(cuda)
-    assert float((R - ref).abs()[good].max()) <= 1e-5
-    zero = torch.from_numpy(kind == 4).to(cuda)
-    assert torch.equal(R[zero], torch.eye(3, device=cuda).expand(int(zero.sum()), 3, 3))
-    Rd = R.double()
-    assert float((Rd @ Rd.transpose(-1, -2) - torch.eye(3, device=cuda, dtype=torch.float64))
+    args, state, kind = icp_step_inputs(B, n)
+    model = icp_kabsch_model(*args, *state)
+    on_card = [tuple(c.to(cuda) for c in a) if isinstance(a, tuple) else a.to(cuda) for a in args]
+    got = [t.to(cuda).clone() for t in state]
+    ref = [t.to(cuda).clone() for t in state]
+    before = _cuda.launch_counts["icp_kabsch"]
+    moved = icp.kabsch_step(*on_card[:1], on_card[1].clone(), *on_card[2:], *got)
+    assert _cuda.launch_counts["icp_kabsch"] == before + 1
+    ref_moved = icp._kabsch_step_plain(*on_card, *ref)
+    unique = torch.from_numpy(kind != ICP_COLLINEAR).to(cuda)
+    assert float((got[0] - ref[0]).abs()[unique].max()) <= 1e-5
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[3], ref[3])
+    assert float(((got[2] - ref[2]).abs() / ref[2].abs().clamp_min(1e-30)).max()) <= 1e-5
+    assert float((moved - ref_moved).abs().max()) <= 1e-5
+    R = got[0][:, :3, :3].double()
+    assert float((R @ R.transpose(-1, -2) - torch.eye(3, device=cuda, dtype=torch.float64))
                  .abs().max()) <= 1e-6
-    assert float((torch.linalg.det(Rd) - 1).abs().max()) <= 1e-6
-    assert torch.equal(R.cpu(), kabsch3_model(H))
+    assert float((torch.linalg.det(R) - 1).abs().max()) <= 1e-6
+    kept = torch.from_numpy(np.isin(kind, (2, 4, 5))).to(cuda)
+    assert torch.equal(got[0][kept], state[0].to(cuda)[kept])
+    for a, b in zip((moved, *got), model):
+        assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("n", [1, 129, 4988])
-def test_sym_eig3_min_kernel_on_card(cuda, n):
-    """sym_eig3_min_kernel against its plain version (eigh) on neighbourhood
-    covariances of a bumpy sheet: |dot| > 1 - 1e-4 where the two smallest
-    eigenvalues are 10% apart, unit norm to 1e-6, equal to its model bit for
+@pytest.mark.parametrize("n,k", [(33, 30), (33, 7), (129, 30), (4988, 30)])
+def test_pca_normals_kernel_on_card(cuda, n, k):
+    """pca_normals_kernel (one launch) against its plain version (gather,
+    mean, einsum, eigh, flip) on the k-neighbourhoods of a bumpy sheet, a
+    ragged last block (33 points) and an odd count of a block's indices (1 x
+    7) included: |dot| > 1 - 1e-4 where the two smallest eigenvalues are
+    10% apart, unit norm to 1e-6, n_z >= 0; equal to its model bit for
     bit."""
     from autourdf_tpu_torch.ops import plane
-    from torch_geom_models import sym_eig3_min_model
+    from torch_geom_models import pca_normals_model
 
     rng = np.random.default_rng(n)
-    xy = rng.uniform(-1, 1, (max(n, 40), 2))
-    pts = np.c_[xy, 0.1 * np.sin(3 * xy[:, 0]) + rng.normal(0, 0.004, len(xy))]
+    xy = rng.uniform(-1, 1, (n, 2))
+    pts = np.c_[xy, 0.1 * np.sin(3 * xy[:, 0]) + rng.normal(0, 0.004, n)]
     pts = torch.from_numpy(pts.astype(np.float32))
-    d = torch.cdist(pts, pts)
-    nb = pts[torch.topk(d, 30, largest=False).indices][:n]
-    c = nb - nb.mean(1, keepdim=True)
-    C = torch.einsum("nki,nkj->nij", c, c)
-    before = _cuda.launch_counts["sym_eig3_min"]
-    v = plane.smallest_eigenvector(C.to(cuda))
-    assert _cuda.launch_counts["sym_eig3_min"] == before + 1
-    ref = plane._smallest_eigenvector_plain(C.to(cuda))
-    e = torch.linalg.eigvalsh(C.double())
-    sep = ((e[:, 1] - e[:, 0]) > 0.1 * e[:, 1]).to(cuda)
-    dots = (v * ref).sum(1).abs()
-    assert bool((dots[sep] > 1 - 1e-4).all())
+    idx = plane.neighbour_indices(pts, k)
+    before = _cuda.launch_counts["pca_normals"]
+    v = plane.pca_normals(pts.to(cuda), idx.to(cuda))
+    assert _cuda.launch_counts["pca_normals"] == before + 1
+    ref = plane._pca_normals_plain(pts.to(cuda), idx.to(cuda))
+    c = pts[idx] - pts[idx].mean(1, keepdim=True)
+    e = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", c, c).double())
+    gap = e[:, 1] - e[:, 0]
+    sep = ((gap > 0.1 * e[:, 1]) & (gap > 1e-4 * e[:, 2])).to(cuda)
+    assert bool((((v * ref).sum(1).abs() > 1 - 1e-4) | ~sep).all())
     assert float((v.norm(dim=1) - 1).abs().max()) <= 1e-6
-    assert torch.equal(v.cpu(), sym_eig3_min_model(C))
+    assert bool((v[:, 2] >= 0).all())
+    assert torch.equal(v.cpu(), pca_normals_model(pts, idx))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -793,7 +789,7 @@ def test_graphed_icp_equals_eager_on_card(cuda, masked):
             assert torch.equal(x, y)
         assert {k: mid[k] - before[k] for k in mid} == \
             {k: _cuda.launch_counts[k] - mid[k] for k in mid}
-        assert _cuda.launch_counts["kabsch3"] - mid["kabsch3"] == 20
+        assert _cuda.launch_counts["icp_kabsch"] - mid["icp_kabsch"] == 20
     assert len(programs.captures) == captured + 1
 
 
@@ -831,7 +827,7 @@ def test_graphed_registration_with_mlp_icp_and_normals_equals_eager_on_card(cuda
         for f in out["eager"]._fields:
             assert torch.equal(getattr(out[name], f), getattr(out["eager"], f)), (name, f)
         assert launched[name] == launched["eager"], (name, launched)
-    assert launched["eager"]["kabsch3"] == 2 * 10 and launched["eager"]["sym_eig3_min"] == 2 * 2
+    assert launched["eager"]["icp_kabsch"] == 2 * 10 and launched["eager"]["pca_normals"] == 2 * 2
 
 
 def test_capture_reads_nothing_back_on_card(cuda):

@@ -1,17 +1,21 @@
 """The algorithms of the port's geometry kernels (``csrc/geom.cu``:
-``fps_kernel``, ``kabsch3_kernel``, ``sym_eig3_min_kernel``) on the CPU, and
-the programs they make possible.
+``fps_kernel``, ``icp_kabsch_kernel`` with its 3x3 solve ``kabsch3``,
+``pca_normals_kernel`` with ``sym_eig3_min``) on the CPU, and the programs
+they make possible.
 
 The kernels run only on the card; here their plain PyTorch models
 (``tests/torch_geom_models.py``: the same fixed sweeps, rotations and sums
-in the same order) are held against the JAX package, which computes the
-same functions with ``jnp.linalg.svd``, ``jnp.linalg.eigh`` and its
-``fori_loop``.  Then the ICP through ``utils/programs.py`` against its eager
+in the same order, the Kabsch step's cluster partition and reduction tree
+included) are held against the JAX package, which computes the same
+functions with ``jnp.linalg.svd``, ``jnp.linalg.eigh``, its ``scan`` step
+and its ``fori_loop``.  Then the ICP through ``utils/programs.py`` against its eager
 loop, and the fused registration with ``mlp_icp`` and ``use_normals`` (now
 one frame-pair program) against the JAX package's fused driver.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +36,8 @@ from autourdf_tpu_torch.models.regmlp import PoseRegressor, params_from_jax
 from autourdf_tpu_torch.ops import fps as tfps
 from autourdf_tpu_torch.ops import icp as ticp
 from autourdf_tpu_torch.ops import plane as tplane
-from autourdf_tpu_torch.ops.knn import PAD_COORD
+from autourdf_tpu_torch.ops.chamfer import _gather_points
+from autourdf_tpu_torch.ops.knn import PAD_COORD, nn_search
 from autourdf_tpu_torch.registration import (
     RegistrationConfig,
     SegmentInit,
@@ -40,7 +45,9 @@ from autourdf_tpu_torch.registration import (
     register_sequences_fused,
 )
 from autourdf_tpu_torch.utils import programs
-from torch_geom_models import fps_model, kabsch3_model, sym_eig3_min_model
+from torch_geom_models import (ICP_COLLINEAR, fps_model, icp_cluster_blocks, icp_cluster_sums,
+                               icp_kabsch_model, icp_step_inputs, kabsch3_model,
+                               pca_normals_model, sym_eig3_min_model)
 
 T_ = torch.from_numpy
 
@@ -73,7 +80,7 @@ def _proper(R: np.ndarray) -> tuple[float, float]:
 
 
 # ---------------------------------------------------------------------------
-# kabsch3_kernel's algorithm
+# icp_kabsch_kernel's 3x3 solve (kabsch3)
 # ---------------------------------------------------------------------------
 
 def _kabsch_inputs(seed, B=24, n=200):
@@ -94,7 +101,7 @@ def test_kabsch_model_matches_jax(seed, monkeypatch):
     cross-covariances (sigma_2 - sigma_3 > 1e-3 sigma_1): 1e-5, the fp32
     round-off of two 3x3 SVDs."""
     src, dst, w = _kabsch_inputs(seed)
-    monkeypatch.setattr(ticp, "kabsch_rotation", kabsch3_model)
+    monkeypatch.setattr(ticp, "_kabsch_rotation_plain", kabsch3_model)
     got = ticp._kabsch(T_(src), T_(dst), T_(w)).numpy()
     ref = np.stack([np.asarray(jicp._kabsch(jnp.asarray(s), jnp.asarray(d), jnp.asarray(x)))
                     for s, d, x in zip(src, dst, w)])
@@ -141,7 +148,7 @@ def test_kabsch_model_degenerate_cross_covariances(rank):
 
 
 # ---------------------------------------------------------------------------
-# sym_eig3_min_kernel's algorithm
+# pca_normals_kernel's 3x3 solve (sym_eig3_min)
 # ---------------------------------------------------------------------------
 
 def test_eigen_model_normals_match_jax_up_to_sign(monkeypatch):
@@ -152,7 +159,7 @@ def test_eigen_model_normals_match_jax_up_to_sign(monkeypatch):
     rng = np.random.default_rng(6)
     xy = rng.uniform(-1, 1, (1500, 2))
     pts = np.c_[xy, 0.1 * np.sin(3 * xy[:, 0]) + rng.normal(0, 0.004, 1500)].astype(np.float32)
-    monkeypatch.setattr(tplane, "smallest_eigenvector", sym_eig3_min_model)
+    monkeypatch.setattr(tplane, "_smallest_eigenvector_plain", sym_eig3_min_model)
     n_t = tplane.estimate_normals(T_(pts), k=30).numpy()
     n_j = np.asarray(jplane.estimate_normals(jnp.asarray(pts), k=30, backend="xla"))
     np.testing.assert_allclose(np.linalg.norm(n_t, axis=1), 1.0, atol=1e-6)
@@ -192,6 +199,217 @@ def test_eigen_model_on_close_and_degenerate_spectra():
     assert np.all(np.abs(np.sum(got * ref, axis=1))[sep] > 1 - 1e-4)
     diag = torch.diag_embed(torch.tensor([[3.0, 1.0, 2.0], [0.5, 0.7, 0.2]]))
     assert torch.equal(sym_eig3_min_model(diag), torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]))
+
+
+# ---------------------------------------------------------------------------
+# icp_kabsch_kernel: the fused step (partition, sums, 3x3, freeze, moved)
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("iterations",))
+def _jax_icp(src, tgt, init, sm, tm, threshold, iterations):
+    return jax.vmap(lambda s, t, i, a, b: jicp.icp_point_to_point(
+        s, t, i, max_iterations=iterations, threshold=threshold, source_mask=a, target_mask=b,
+        backend="xla"))(src, tgt, init, sm, tm)
+
+
+def _model_icp(src, tgt, init, sm, tm, threshold, iterations, blocks):
+    """The port's ICP loop with ``icp_kabsch_model`` for its step (the
+    kernel's partition into ``blocks`` and its order of every sum)."""
+    B = src.shape[0]
+    tg = torch.where(tm[..., None], tgt, PAD_COORD)
+    w = sm.to(torch.float32)
+    total = torch.clamp_min(torch.sum(w, dim=1), 1e-12)
+    crit = tuple(torch.tensor(v, dtype=torch.float32) for v in (threshold, 1e-6, 1e-6))
+    T, done = init.clone(), torch.zeros(B, dtype=torch.bool)
+    fit, rmse = torch.full((B,), -1.0), torch.full((B,), -1.0)
+    moved = ticp._transform(src, T)
+    for _ in range(iterations):
+        d2, idx = nn_search(moved, tg, norm=2)
+        moved, T, fit, rmse, done = icp_kabsch_model(src, moved, tg, idx, d2, w, total, crit, T,
+                                                     fit, rmse, done, blocks)
+    return T, fit, rmse
+
+
+def _icp_case(case, B=3, n=240):
+    """Clouds, a rotated, shifted and noisy copy (an RMSE well above
+    round-off), small random inits and the masks
+    of ``case``: "dense", "masked" (a tenth of either side off), "no_inlier"
+    (the target beyond the threshold) or "empty_gate" (no target point)."""
+    rng = np.random.default_rng(21)
+    src = rng.normal(scale=[0.12, 0.08, 0.05], size=(B, n, 3)).astype(np.float32)
+    rot = ScipyRot.from_rotvec(rng.normal(0, 0.08, (B, 3))).as_matrix()
+    tgt = (np.einsum("bij,bnj->bni", rot, src) + [0.01, -0.02, 0.015]
+           + rng.normal(0, 3e-3, src.shape)).astype(np.float32)
+    init = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    init[:, :3, :3] = ScipyRot.from_rotvec(rng.normal(0, 0.02, (B, 3))).as_matrix()
+    init[:, :3, 3] = rng.normal(0, 0.005, (B, 3))
+    sm, tm = np.ones((B, n), bool), np.ones((B, n), bool)
+    if case == "masked":
+        sm, tm = rng.random((B, n)) > 0.1, rng.random((B, n)) > 0.1
+    elif case == "no_inlier":
+        tgt += 5.0
+    elif case == "empty_gate":
+        tm[:] = False
+    return src, tgt, init, sm, tm
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "no_inlier", "empty_gate"])
+@pytest.mark.parametrize("blocks", [1, 2, 5, 8])
+def test_icp_kabsch_model_matches_jax(blocks, case):
+    """Eight ICP iterations with the fused step's model, its points split over
+    1, 2, 5 or 8 blocks of a cluster and summed in the kernel's order,
+    against the JAX package's ``icp_point_to_point`` (``_kabsch`` and its
+    ``scan`` step): T to 1e-5 (fp32 round-off of two 3x3 solvers and of the
+    sums in two orders), fitness equal (sums of 0/1 weights are exact),
+    RMSE to 1e-5 relative.  With no inlier or an empty gate, T stays at its
+    init exactly and fitness = RMSE = 0."""
+    src, tgt, init, sm, tm = _icp_case(case)
+    T, fit, rmse = _model_icp(T_(src), T_(tgt), T_(init), T_(sm), T_(tm), 0.2, 8, blocks)
+    ref = _jax_icp(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(init), jnp.asarray(sm),
+                   jnp.asarray(tm), 0.2, 8)
+    np.testing.assert_allclose(T.numpy(), np.asarray(ref.transform), atol=1e-5)
+    np.testing.assert_array_equal(fit.numpy(), np.asarray(ref.fitness))
+    np.testing.assert_allclose(rmse.numpy(), np.asarray(ref.rmse), rtol=1e-5)
+    if case in ("no_inlier", "empty_gate"):
+        assert torch.equal(T, T_(init))
+        assert not fit.any() and not rmse.any()
+
+
+@pytest.mark.parametrize("B,n", [(1, 10000), (6, 2250), (2, 1024), (100, 4988), (18, 1500)])
+def test_icp_kabsch_model_step_matches_the_plain_step(B, n):
+    """One step of the model at the partition the kernel takes at the ICP
+    sites' shapes (resim, link, polish, ``--mlp_icp`` with 5% of the
+    weights, a 14-link build's link ICP) against the port's plain step:
+    T to 1e-5 (but where H has rank 1: its rotation about the line is
+    free), fitness equal, RMSE to 1e-5 relative, the next moved cloud to
+    1e-5; the new rotation proper to 1e-6, also from a reflected H and at
+    rank 2 and 1; frozen entries keep T, fitness and RMSE bit for bit, and
+    with no inlier or an empty gate T stays as it was and fitness = RMSE =
+    0."""
+    args, (T, fit, rmse, done), kind = icp_step_inputs(B, n)
+    got = icp_kabsch_model(*args, T, fit, rmse, done)
+    state = [t.clone() for t in (T, fit, rmse, done)]
+    moved = ticp._kabsch_step_plain(*args, *state)
+    unique = T_(kind != ICP_COLLINEAR)
+    np.testing.assert_allclose(got[1][unique].numpy(), state[0][unique].numpy(), atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), state[1].numpy())
+    np.testing.assert_allclose(got[3].numpy(), state[2].numpy(), rtol=1e-5)
+    np.testing.assert_array_equal(got[4].numpy(), state[3].numpy())
+    np.testing.assert_allclose(got[0].numpy(), moved.numpy(), atol=1e-5)
+    orth, det = _proper(got[1][:, :3, :3].numpy())
+    assert orth <= 1e-6 and det <= 1e-6
+    kept = T_(np.isin(kind, (2, 4, 5)))
+    assert torch.equal(got[1][kept], T[kept])
+    assert torch.equal(got[2][T_(kind == 4)], fit[T_(kind == 4)])
+    empty = T_(np.isin(kind, (2, 5)))
+    assert not got[2][empty].any() and not got[3][empty].any()
+    assert icp_cluster_blocks(n) == ticp.cluster_blocks(n) == {10000: 5, 2250: 2, 1024: 1,
+                                                              4988: 3, 1500: 1}[n]
+
+
+@pytest.mark.parametrize("n", [1, 31, 257, 2049, 16385, 20000])
+def test_icp_cluster_sums_cover_every_point_once(n):
+    """The kernel's partition (at most 8 blocks, beyond 8 points a thread
+    the rest re-read) counts every point once: integer weights sum exactly,
+    and random values agree with a float64 sum to fp32 round-off."""
+    rng = np.random.default_rng(n)
+    ones = torch.ones(2, n, 1)
+    v = T_(rng.normal(size=(2, n, 3)).astype(np.float32))
+    for blocks in (None, 1, 3, 8):
+        assert torch.equal(icp_cluster_sums(ones, blocks), torch.full((2, 1), float(n)))
+        np.testing.assert_allclose(icp_cluster_sums(v, blocks).double().numpy(),
+                                   v.double().sum(1).numpy(), atol=1e-4)
+
+
+class _PreviousLoop:
+    """``ops/icp.py _icp_loop`` as it was before its step moved into
+    ``_kabsch_step_plain``: the reference of the CPU's bits."""
+
+    @staticmethod
+    def run(source, target, T, source_mask, target_mask, crit, max_iterations):
+        threshold, relative_rmse, relative_fitness = crit
+        B, dt = source.shape[0], source.dtype
+        tgt = (target if target_mask is None
+               else torch.where(target_mask[..., None], target, PAD_COORD))
+        src_w = torch.ones(source.shape[:2], dtype=dt) if source_mask is None \
+            else source_mask.to(dt)
+        src_total = torch.clamp_min(torch.sum(src_w, dim=1), 1e-12)
+        fitness, rmse = torch.full((B,), -1.0), torch.full((B,), -1.0)
+        done = torch.zeros((B,), dtype=torch.bool)
+        for _ in range(max_iterations):
+            moved = source @ T[:, :3, :3].transpose(-1, -2) + T[:, None, :3, 3]
+            d2, idx = nn_search(moved, tgt, norm=2)
+            dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+            w = src_w * (dist < threshold)
+            T_new = ticp._kabsch(moved, _gather_points(tgt, idx), w) @ T
+            w_sum = torch.sum(w, dim=1)
+            fit_new = w_sum / src_total
+            rmse_new = torch.sqrt(torch.sum(w * d2, dim=1) / torch.clamp_min(w_sum, 1e-12))
+            conv = ((torch.abs(fit_new - fitness)
+                     < relative_fitness * torch.clamp_min(fit_new, 1e-12))
+                    & (torch.abs(rmse_new - rmse)
+                       < relative_rmse * torch.clamp_min(rmse_new, 1e-12)))
+            T = torch.where(done[:, None, None], T, T_new)
+            fitness = torch.where(done, fitness, fit_new)
+            rmse = torch.where(done, rmse, rmse_new)
+            done = done | conv
+        return T, fitness, rmse
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cpu_icp_equals_the_previous_loop_bit_for_bit(masked):
+    """On the CPU the ICP with its step in ``_kabsch_step_plain`` (T, fitness,
+    RMSE and done updated in place, the next moved cloud returned) gives
+    the previous loop's transforms, fitness and RMSE bit for bit, eagerly
+    and as a program, with entries that converge and freeze on the way."""
+    src, tgt, sm, tm = _icp_batch(7)
+    init = torch.eye(4).repeat(3, 1, 1)
+    init[:, :3, 3] = torch.tensor([0.004, -0.003, 0.002])
+    masks = (T_(sm), T_(tm)) if masked else (None, None)
+    crit = tuple(torch.tensor(v) for v in (0.2, 1e-4, 1e-4))
+    ref = _PreviousLoop.run(T_(src), T_(tgt), init, *masks, crit, 25)
+    for eager in (True, False):
+        got = ticp.icp_point_to_point(T_(src), T_(tgt), init, max_iterations=25, threshold=0.2,
+                                      source_mask=masks[0], target_mask=masks[1],
+                                      relative_rmse=1e-4, relative_fitness=1e-4, eager=eager)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert torch.equal(init[:, :3, 3], torch.tensor([0.004, -0.003, 0.002]).expand(3, 3))
+
+
+# ---------------------------------------------------------------------------
+# pca_normals_kernel: the fused normals (sums, sym_eig3_min, flip)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [30, 8])
+def test_pca_normals_model_matches_jax_and_the_plain_version(k):
+    """The fused normals' model (each neighbourhood's mean and covariance
+    summed in the kernel's order, ``sym_eig3_min_model``, the flip) on the
+    port's top-k neighbours, against the JAX package's ``estimate_normals``
+    as ``test_estimate_normals_matches_jax_up_to_sign`` holds the port's:
+    |n_jax . n| > 1 - 1e-3 where the two smallest eigenvalues are 10% apart;
+    against the plain version (gather, mean, einsum, ``eigh``, flip): |dot|
+    > 1 - 1e-4 there and the same sign where |n_z| > 1e-3 (the flip); unit
+    norm to 1e-6 and n_z >= 0 everywhere."""
+    rng = np.random.default_rng(16)
+    xy = rng.uniform(-1, 1, (1500, 2))
+    pts = np.c_[xy, 0.1 * np.sin(3 * xy[:, 0]) + rng.normal(0, 0.004, 1500)].astype(np.float32)
+    idx = tplane.neighbour_indices(T_(pts), k)
+    got = pca_normals_model(T_(pts), idx).numpy()
+    plain = tplane._pca_normals_plain(T_(pts), idx).numpy()
+    n_j = np.asarray(jplane.estimate_normals(jnp.asarray(pts), k=k, backend="xla"))
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-6)
+    assert np.all(got[:, 2] >= 0)
+    nb = pts[idx.numpy()].astype(np.float64)
+    c = nb - nb.mean(1, keepdims=True)
+    ev = np.linalg.eigvalsh(np.einsum("nki,nkj->nij", c, c))
+    sep = ((ev[:, 1] - ev[:, 0]) > 0.1 * ev[:, 1]) & ((ev[:, 1] - ev[:, 0]) > 1e-4 * ev[:, 2])
+    assert sep.mean() > 0.8
+    assert np.all(np.abs(np.sum(n_j * got, axis=1))[sep] > 1 - 1e-3)
+    dots = np.sum(plain * got, axis=1)
+    assert np.all(np.abs(dots)[sep] > 1 - 1e-4)
+    steep = sep & (np.abs(plain[:, 2]) > 1e-3)
+    assert np.all(dots[steep] > 0)
 
 
 # ---------------------------------------------------------------------------
