@@ -15,13 +15,19 @@ to the observed child-link clouds.  The screw estimate is the
 initialisation.
 
 Where the JAX module maps the Chamfer over the T steps with ``vmap`` and
-iterates under ``lax.scan``, here the T steps are one batched Chamfer call
-and the loop is a Python loop whose state stays in tensors: nothing is read
-back from the device until the fit ends.
+jits a ``lax.scan`` of the Adam steps, here the T steps are one batched
+Chamfer call and the steps run as the chain fit's do (``joints/chain.py``):
+chunk programs of ``DISPATCH_STEPS`` steps (``utils/programs.py``: a CUDA
+graph captured once per shape and chunk length and replayed on the card,
+the same function run without capture on the CPU), each step's Adam bias
+corrections read from a table on the device.  ``eager=True`` runs the same
+steps one by one, the reference the programs are held against.  Nothing is
+read back from the device until the fit ends.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -30,7 +36,12 @@ import torch
 from ..core import rotations as R
 from ..core import se3
 from ..ops.chamfer import chamfer_distance
+from ..utils import programs
 from .screw import JointEstimate
+
+# Steps a chunk program: the chain fit's chunk.  200 steps at T = 10 and
+# 2,048 points a cloud are 4 replays of one graph of some 16,000 nodes.
+DISPATCH_STEPS = 50
 
 
 class RefineResult(NamedTuple):
@@ -67,6 +78,46 @@ def adam_bias_corrections(step: int) -> tuple[float, float]:
                  for b in (0.9, 0.999))
 
 
+def _schedule(steps: int) -> np.ndarray:
+    """``(steps, 2)`` float32 rows of each step's Adam bias corrections
+    (:func:`adam_bias_corrections` of steps 1 to ``steps``)."""
+    return np.array([adam_bias_corrections(i) for i in range(1, steps + 1)],
+                    np.float32).reshape(steps, 2)
+
+
+def _revolute_step(lr: float, origin_reg: float, consts, state, row):
+    """One Adam step of the revolute fit: ``state`` is (params, mu, nu),
+    ``row`` the step's :func:`_schedule` row on the device.  Returns
+    the new state and the loss, evaluated before the update."""
+    parent_T, child_obs, child_mask, x_c, x_mask, o0, first = consts
+    params, mu, nu = state
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        u = p["u"] / torch.clamp_min(torch.linalg.norm(p["u"]), 1e-9)
+        o, theta = p["o"], torch.where(first, 0.0, p["theta"])
+        world = se3.transform_points(parent_T @ _rot_about_axis(u, o, theta), x_c)
+        losses = chamfer_distance(world, child_obs, x_mask, child_mask, norm=1)
+        loss = torch.mean(losses) + origin_reg * torch.sum((o - o0) ** 2)
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    bc1, bc2 = row[0], row[1]
+    with torch.no_grad():
+        mu = {k: 0.9 * mu[k] + 0.1 * grads[k] for k in p}
+        nu = {k: 0.999 * nu[k] + 0.001 * grads[k] * grads[k] for k in p}
+        params = {k: params[k] - lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + 1e-8)
+                  for k in p}
+    return (params, mu, nu), loss.detach()
+
+
+def _revolute_chunk(lr: float, origin_reg: float, num_steps: int, state, sched, consts):
+    """``num_steps`` steps from the rows of ``sched``: the body of the chunk
+    program.  Returns the state and the steps' losses."""
+    losses = []
+    for j in range(num_steps):
+        state, loss = _revolute_step(lr, origin_reg, consts, state, sched[j])
+        losses.append(loss)
+    return state, torch.stack(losses)
+
+
 def fit_revolute_joint(
     parent_T: torch.Tensor,   # (T, 4, 4) parent link world poses
     child_obs: torch.Tensor,  # (T, P, 3) observed child-link world clouds (padded)
@@ -77,44 +128,41 @@ def fit_revolute_joint(
     steps: int = 200,
     lr: float = 2e-2,
     origin_reg: float = 1e-3,
+    eager: bool = False,
 ) -> RefineResult:
     """Adam fit of one revolute joint; the loss of every step is one Chamfer
     call of batch T (step 0's child cloud, posed at every step, against each
-    step's observation)."""
-    T_steps = parent_T.shape[0]
+    step's observation).  The steps run in chunk programs of
+    ``DISPATCH_STEPS`` (a shorter last chunk is a program of its own), or
+    one by one with ``eager=True``; both give the same bits."""
+    T_steps, dev = parent_T.shape[0], parent_T.device
     inv_p0 = se3.inverse(parent_T[0])
     x_c = se3.transform_points(inv_p0, child_obs[0])       # child points, parent frame
-    x_mask = child_mask[0].expand(T_steps, -1)
-    first = torch.arange(T_steps, device=theta0.device) == 0
-
-    def unpack(p):
-        u = p["u"] / torch.clamp_min(torch.linalg.norm(p["u"]), 1e-9)
-        return u, p["o"], torch.where(first, 0.0, p["theta"])
-
-    def loss_fn(p):
-        u, o, theta = unpack(p)
-        world = se3.transform_points(parent_T @ _rot_about_axis(u, o, theta), x_c)
-        losses = chamfer_distance(world, child_obs, x_mask, child_mask, norm=1)
-        return torch.mean(losses) + origin_reg * torch.sum((o - o0) ** 2)
-
+    consts = (parent_T, child_obs, child_mask, x_c, child_mask[0].expand(T_steps, -1), o0,
+              torch.arange(T_steps, device=dev) == 0)
     params = {"u": u0, "o": o0, "theta": theta0}
-    mu = {k: torch.zeros_like(v) for k, v in params.items()}
-    nu = {k: torch.zeros_like(v) for k, v in params.items()}
-    loss = None
-    for i in range(1, steps + 1):
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(p)
-        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
-        bc1, bc2 = adam_bias_corrections(i)
-        with torch.no_grad():
-            mu = {k: 0.9 * mu[k] + 0.1 * grads[k] for k in p}
-            nu = {k: 0.999 * nu[k] + 0.001 * grads[k] * grads[k] for k in p}
-            params = {k: params[k] - lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + 1e-8)
-                      for k in p}
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    state = (params, zeros, zeros)
+    table = torch.as_tensor(_schedule(steps), device=dev)
+    loss = torch.full((), float("inf"), device=dev)
+    if eager:
+        for i in range(steps):
+            state, loss = _revolute_step(lr, origin_reg, consts, state, table[i])
+    else:
+        for done in range(0, steps, DISPATCH_STEPS):
+            n = min(DISPATCH_STEPS, steps - done)
+            state, losses = programs.run(
+                ("revolute_chunk", lr, origin_reg, n),
+                functools.partial(_revolute_chunk, lr, origin_reg, n),
+                state, table[done:done + n], consts,
+                warm=functools.partial(_revolute_chunk, lr, origin_reg, 1))
+            loss = losses[-1]
+        state, loss = programs.clone((state, loss))
+    params = state[0]
     with torch.no_grad():
-        u, o, theta = unpack(params)
-    return RefineResult(u, o, theta, loss.detach() if loss is not None
-                        else torch.tensor(float("inf")))
+        u = params["u"] / torch.clamp_min(torch.linalg.norm(params["u"]), 1e-9)
+        theta = torch.where(consts[-1], 0.0, params["theta"])
+    return RefineResult(u, params["o"], theta, loss)
 
 
 def child_world_clouds(cm, members: list[int], cap: int) -> tuple[np.ndarray, np.ndarray]:
@@ -154,9 +202,11 @@ def refine_joints(
     point_cap: int = 2048,
     verbose: bool = False,
     device: str | torch.device = "cuda",
+    eager: bool = False,
 ) -> list[JointEstimate]:
     """Refine every estimated joint against the first sequence's clouds on
-    ``device``.
+    ``device``, each fit in :func:`fit_revolute_joint`'s chunk programs
+    (``eager=True``: step by step, the plain loop).
 
     Returns new JointEstimates with updated global_pos / global_axis (the
     fields the URDF writer consumes); the screw estimates initialise the
@@ -192,7 +242,8 @@ def refine_joints(
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
         res = fit_revolute_joint(tensor(parent_T), tensor(obs), tensor(mask, torch.bool),
-                                 tensor(u0), tensor(o0), tensor(theta0), steps=steps)
+                                 tensor(u0), tensor(o0), tensor(theta0), steps=steps,
+                                 eager=eager)
         u = res.axis.cpu().numpy().astype(np.float64)
         o = res.origin.cpu().numpy().astype(np.float64)
         p0 = parent_T[0].astype(np.float64)

@@ -240,7 +240,23 @@ def sharded_search(mesh: Mesh, xs: torch.Tensor, ys: torch.Tensor, norm: int = 1
     the global minimum and, among ranks that tie, the lowest index: the
     single-device first-index rule.  y -> x: each rank's rows of ``(dy,
     iy)``, assembled by one all-reduce SUM of zero buffers (float64: exact
-    for both).  Takes ``(S, N, 3)``/``(S, M, 3)``."""
+    for both).  Takes ``(S, N, 3)``/``(S, M, 3)``.
+
+    The three steps are functions of their own, :func:`search_local` ->
+    :func:`search_reduce` -> :func:`search_unpack`, so that a caller can run
+    the first and the last on the device as programs and the collectives
+    between them (``train_step_dp_sp``)."""
+    key, yside = search_local(mesh, xs, ys, norm, axis_name)
+    return search_unpack(*search_reduce(mesh, key, yside, axis_name))
+
+
+def search_local(mesh: Mesh, xs: torch.Tensor, ys: torch.Tensor, norm: int = 1,
+                 axis_name: str = "sp") -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's part of :func:`sharded_search`, packed for the
+    collectives: ``key (S, N)`` int64, the x -> y matches against the rank's
+    rows of ``ys`` (int64 max where it has none), and ``yside (2, S, M)``
+    float64, the y -> x distances and indices in the rank's rows, zeros
+    elsewhere.  Waits on nothing on the host."""
     from ..ops.knn import nn_search_bidirectional
 
     S, n, m = xs.shape[0], xs.shape[1], ys.shape[1]
@@ -252,8 +268,20 @@ def sharded_search(mesh: Mesh, xs: torch.Tensor, ys: torch.Tensor, norm: int = 1
         key = (dx.view(torch.int32).to(torch.int64) << 32) | (ix + rows.start)
         yside[0, :, rows] = dy.to(torch.float64)
         yside[1, :, rows] = iy.to(torch.float64)
+    return key, yside
+
+
+def search_reduce(mesh: Mesh, key: torch.Tensor, yside: torch.Tensor,
+                  axis_name: str = "sp") -> tuple[torch.Tensor, torch.Tensor]:
+    """The collectives of :func:`sharded_search`, in place: all-reduce MIN of
+    ``key`` and SUM of ``yside`` over the ranks of ``axis_name``."""
     all_reduce(mesh, axis_name, key, "min")
     all_reduce(mesh, axis_name, yside)
+    return key, yside
+
+
+def search_unpack(key: torch.Tensor, yside: torch.Tensor):
+    """``(dx, ix, dy, iy)`` of the reduced ``key`` and ``yside``."""
     dx = (key >> 32).to(torch.int32).view(torch.float32)
     return dx, key & 0xFFFFFFFF, yside[0].to(torch.float32), yside[1].to(torch.int64)
 
@@ -353,6 +381,11 @@ def chamfer_collective(
     return loss[0] if squeeze else loss
 
 
+# train_epochs' defaults (stop patience, scheduler patience and factor), which
+# the training step keeps
+_TRAIN_SCHEDULE = (200, 5, 0.7)
+
+
 def train_step_dp_sp(
     mesh: Mesh,
     model,
@@ -363,6 +396,7 @@ def train_step_dp_sp(
     labels_batch: torch.Tensor,    # (S, N)
     num_epochs: int = 10,
     lr: float = 2e-4,
+    eager: bool = False,
 ):
     """One full training phase on a ``(dp, sp)`` mesh.
 
@@ -370,10 +404,19 @@ def train_step_dp_sp(
     target over sp, the loss and its gradient assembled by the collectives
     that :func:`sharded_chamfer` and :func:`chamfer_collective` share (every
     rank holds the targets whole, so none is reassembled).  The optimizer
-    is the production
-    ``train_init`` + ``train_epochs`` (Adam, plateau scheduler, best
-    tracking).  Requires ``S % dp == 0`` and ``M % sp == 0``.  Returns
+    is the production one (Adam, plateau scheduler, best tracking).
+    Requires ``S % dp == 0`` and ``M % sp == 0``.  Returns
     ``(best_matrices (S, K, 4, 4), best_losses (S,))``, whole on every rank.
+
+    The phase runs as programs (``utils/programs.py``): ``train_init``, then
+    every epoch program A (the pose MLP and the rank's search,
+    :func:`search_local`), the two all-reduces on the host
+    (:func:`search_reduce`: a gloo collective waits on the host and cannot be
+    captured) and program B (:func:`search_unpack` and the epoch,
+    ``registration.optimizer.epoch_from_search``, which runs the MLP again
+    for its gradient).  ``eager=True`` runs ``train_init`` + ``train_epochs``
+    with the split Chamfer as its ``chamfer_fn``, the plain loop that the
+    programs equal bit for bit.
     """
     from ..registration.optimizer import train_epochs, train_init
 
@@ -382,15 +425,49 @@ def train_step_dp_sp(
     if S % dp or M % sp:
         raise ValueError(f"need S % dp == 0 and M % sp == 0, got S={S} dp={dp} M={M} sp={sp}")
     rows = _rows(mesh, "dp", S)
-    mats, pts, tgt = matrices_batch[rows], points_batch[rows], targets[rows]
-    xw = torch.ones(pts.shape[:2], dtype=torch.float32, device=pts.device)
-    yw = torch.ones(tgt.shape[:2], dtype=torch.float32, device=pts.device)
-
-    def cham(pred, y, pm, tm):
-        return _split_search_chamfer(pred, y, xw, yw, mesh, "sp", 1)
-
+    mats, pts, tgt, lab = (t[rows] for t in (matrices_batch, points_batch, targets, labels_batch))
     theta = model.flat_params(shard_sequences(mesh, params_batch, "dp"))
-    carry = train_init(theta, mats, lr)
-    carry, _ = train_epochs(model, carry, mats, tgt, pts, labels_batch[rows], num_epochs,
-                            chamfer_fn=cham)
+    if eager:
+        xw = torch.ones(pts.shape[:2], dtype=torch.float32, device=pts.device)
+        yw = torch.ones(tgt.shape[:2], dtype=torch.float32, device=pts.device)
+
+        def cham(pred, y, pm, tm):
+            return _split_search_chamfer(pred, y, xw, yw, mesh, "sp", 1)
+
+        carry = train_init(theta, mats, lr)
+        carry, _ = train_epochs(model, carry, mats, tgt, pts, lab, num_epochs,
+                                None, None, *_TRAIN_SCHEDULE, chamfer_fn=cham)
+    else:
+        carry = _train_programs(mesh, model, theta, mats, tgt, pts, lab, num_epochs, lr)
     return _assemble(mesh, "dp", carry.best_m, S), _assemble(mesh, "dp", carry.best_loss, S)
+
+
+def _train_programs(mesh: Mesh, model, theta, mats, tgt, pts, lab, num_epochs: int, lr: float):
+    """``train_step_dp_sp``'s epochs as programs A and B around the
+    collectives; returns the last carry."""
+    from ..registration.optimizer import epoch_from_search, predict_points, train_init
+    from ..utils import programs
+
+    def search(theta, m, p, l, y):
+        with torch.no_grad():
+            _, pred = predict_points(model, theta, m, p, l)
+            return search_local(mesh, pred, y, 1, "sp")
+
+    def epoch(c, key, yside, m, p, l, y):
+        return epoch_from_search(model, c, m, y, p, l, search_unpack(key, yside),
+                                 *_TRAIN_SCHEDULE)
+
+    # the search program closes over this rank's rows of the target: ranks
+    # with other rows make other programs
+    cut = _shard_rows(tgt.shape[1], mesh.shape["sp"], mesh.index("sp"))
+    tag = (model.mode, model.hidden_dim, *_TRAIN_SCHEDULE, cut.start, cut.stop)
+    carry = programs.run(("train_init", lr), lambda th, m: train_init(th, m, lr), theta, mats)
+    for _ in range(num_epochs):
+        key, yside = programs.run(("dp_sp_search", *tag), search, carry.theta, mats, pts, lab,
+                                  tgt)
+        # reduced in place in A's output buffers: B copies them into its own
+        # inputs before A's next call overwrites them
+        search_reduce(mesh, key, yside, "sp")
+        carry, _ = programs.run(("dp_sp_epoch", *tag), epoch, carry, key, yside, mats, pts, lab,
+                                tgt)
+    return programs.clone(carry)

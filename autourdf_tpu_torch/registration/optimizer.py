@@ -33,7 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.chamfer import chamfer_correspondences, chamfer_distance, chamfer_from_indices
+from ..ops.chamfer import (_ChamferFn, chamfer_correspondences, chamfer_distance,
+                           chamfer_from_indices)
 from ..utils import programs
 
 
@@ -140,6 +141,14 @@ def train_init(theta: torch.Tensor, matrices: torch.Tensor, learning_rate: float
     )
 
 
+def predict_points(model, theta: torch.Tensor, matrices: torch.Tensor, points: torch.Tensor,
+                   labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pose MLP's matrices ``(S, K, 4, 4)`` from the flat ``theta`` and
+    the incoming ``matrices``, and the world points ``(S, N, 3)`` they pose."""
+    m2 = model.forward_flat(theta, matrices)
+    return m2, transform_by_labels(m2, points, labels)
+
+
 def _keep_old(frozen: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     return torch.where(frozen.view((-1,) + (1,) * (new.dim() - 1)), old, new)
 
@@ -217,8 +226,7 @@ def train_epochs(
     steps = (stop_patience, scheduler_patience, scheduler_factor)
 
     def predict(theta):
-        m2 = model.forward_flat(theta, matrices)
-        return m2, transform_by_labels(m2, points, labels)
+        return predict_points(model, theta, matrices, points, labels)
 
     losses = []
     if corr_every <= 1:
@@ -254,6 +262,37 @@ def train_epochs(
             carry, loss = _epoch_step(carry, loss_and_m, *steps)
             losses.append(loss)
     return carry, torch.stack(losses, dim=1)
+
+
+def epoch_from_search(
+    model,
+    carry: TrainCarry,
+    matrices: torch.Tensor,
+    target: torch.Tensor,
+    points: torch.Tensor,
+    labels: torch.Tensor,
+    found: tuple,
+    stop_patience: int = 200,
+    scheduler_patience: int = 5,
+    scheduler_factor: float = 0.7,
+) -> tuple[TrainCarry, torch.Tensor]:
+    """One epoch of :func:`train_epochs` with ``chamfer_fn`` whose Chamfer
+    search was made elsewhere, from the same ``carry.theta``: ``found`` is
+    its ``(dx, ix, dy, iy)`` of the unmasked clouds.
+
+    The Chamfer's forward takes the loss from ``dx`` and ``dy`` and its
+    backward needs only ``ix`` and ``iy``, so the epoch's loss, gradient and
+    carry are those of the epoch that searched for itself.  Used by
+    ``parallel.sharding.train_step_dp_sp``, whose search ends in collectives
+    that run between two programs.  Returns ``(carry, loss (S,))``."""
+    xw = torch.ones(points.shape[:2], dtype=torch.float32, device=points.device)
+    yw = torch.ones(target.shape[:2], dtype=torch.float32, device=target.device)
+
+    def loss_and_m(theta):
+        m2, pred = predict_points(model, theta, matrices, points, labels)
+        return _ChamferFn.apply(pred, target, xw, yw, 1, lambda *_: found), m2
+
+    return _epoch_step(carry, loss_and_m, stop_patience, scheduler_patience, scheduler_factor)
 
 
 def train_finalize(carry: TrainCarry, losses: torch.Tensor) -> TrainResult:

@@ -100,7 +100,11 @@ Phases, each of which fails the run on error:
     M = 131,071 with bool masks (loss, both gradients, every nearest index);
     [12b] ``chamfer_distance`` inside ``mesh_scope`` at M = 40,000 shards by
     itself; [12c] ``train_step_dp_sp`` on a (2, 2) mesh (4 ranks) with four
-    of [11]'s sequences, K=20, hidden 512, 300 epochs; [12d]
+    of [11]'s sequences, K=20, hidden 512, 300 epochs, as programs (each
+    epoch program A, the two all-reduces, program B; a first call with its
+    captures and a second that replays) and eagerly, all three equal to the
+    single-process path bit for bit, with the program calls and the
+    all-reduces an epoch counted; [12d]
     ``register_sequences_sharded`` over 2 ranks, four of [11]'s sequences x 3
     frames; every rank must launch the search kernels, and the wall times
     say nothing of multi-card scaling;
@@ -134,6 +138,15 @@ Phases, each of which fails the run on error:
     program must equal the eager loop's bit for bit and every program's
     capture and instantiation seconds, graph nodes and pool bytes are
     printed.
+
+16. the revolute-joint fit: ``refine_joints`` (200 Adam steps a joint,
+    point_cap 2,048) on the joints, links and first ``CoordMap`` of [6]'s
+    known-DoF build, eager, in its chunk programs and replayed (first the
+    search kernel at the fits' shape against its plain version): every fit and
+    refined joint equal bit for bit, with the same launches and at least one
+    indexed search; unit axes, ``thetas[0] == 0``, finite losses; wall ms a
+    step, the captures, and each fit's gap to the CPU port from the same
+    inputs over its first 25 steps (not gated).
 
 The main path of phases 4, 4c, 9, 11 and 14 runs the programs (phase 4
 prints its captures).  Phase 4b times a training epoch and phase 9b a
@@ -1443,21 +1456,25 @@ def _check_urdf(out: dict, label: str) -> np.ndarray:
     return axes
 
 
-def run_urdf_stage(dev, cfg) -> dict:
+def run_urdf_stage(dev, cfg) -> tuple[dict, dict]:
     """Phase 6 (Path B): structure -> joints -> meshes -> URDF from the
-    artifacts of phase 4, with the known DoF and with the DoF search."""
+    artifacts of phase 4, with the known DoF and with the DoF search.
+    Returns the path's counts and the known-DoF build's output ([16] fits
+    its joints)."""
     from autourdf_tpu_torch import workflow
     from autourdf_tpu_torch.ops import _cuda
 
     _cuda.reset_launch_counts()
+    builds = {}
     for label, kw in (("known DoF", dict(unknown_dof=False)),
                       ("unknown DoF, no probe", dict(unknown_dof=True, dof_probe=False))):
         before = _cuda.launch_counts["nn"]
         shapes: collections.Counter = collections.Counter()
         t0 = time.time()
         with _launch_shapes(shapes):        # the shapes this build launches
-            out = workflow.run_build_urdf(cfg, refine="none", tree="mst", end_video=5,
-                                          verbose=False, device=dev, **kw)
+            out = builds[label] = workflow.run_build_urdf(cfg, refine="none", tree="mst",
+                                                          end_video=5, verbose=False, device=dev,
+                                                          **kw)
         torch.cuda.synchronize(dev)
         seconds = time.time() - t0
         launched = _cuda.launch_counts["nn"] - before
@@ -1468,7 +1485,7 @@ def run_urdf_stage(dev, cfg) -> dict:
               f"{seconds:.3f} s, nn launches {launched}")
         if launched < 1:
             _fail(f"the urdf stage did not go through the nn kernel ({label})")
-    return {"counts": dict(_cuda.launch_counts)}
+    return {"counts": dict(_cuda.launch_counts)}, builds["known DoF"]
 
 
 def _raw_chamfer(dev, frames, masks) -> float:
@@ -2132,9 +2149,8 @@ SHARD_CASES = ((131072, 131072, False), (100003, 131071, True))
 AUTO_SHARD_M = 40000
 # [12c] and [12d]: four of [11]'s sequences at full width
 PAR_SEQS, PAR_FRAMES, PAR_K, PAR_HIDDEN, PAR_LR = 4, 3, 20, 512, 2e-4
-# the JAX package's tolerances for its sharded training step
-# (tests/test_parallel_native_viz.py): best losses and matrices
-STEP_RTOL, STEP_ATOL, STEP_M_ATOL = 1e-5, 1e-6, 1e-5
+# [12d]'s losses against the single-process registration (the JAX package's
+# tolerance for its sharded registration, tests/test_parallel_native_viz.py)
 REG_ATOL = 1e-5
 
 
@@ -2240,19 +2256,46 @@ def rank_sp2_dp2(cases: list, reg: dict) -> dict:
 
 def rank_dp_sp(step: dict) -> dict:
     """[12c] in each of four ranks on the one card: ``train_step_dp_sp`` on
-    mesh (2, 2) ("dp", "sp")."""
+    mesh (2, 2) ("dp", "sp"), as programs (A, the two all-reduces, B a
+    epoch; the first call captures, the second replays only) and eagerly,
+    from the same inputs.  Counts the program calls and the sp all-reduces
+    of each run, and returns the rank's captures."""
+    import autourdf_tpu_torch.parallel.sharding as sh
     from autourdf_tpu_torch.models.regmlp import PoseRegressor
-    from autourdf_tpu_torch.parallel import make_mesh, train_step_dp_sp
+    from autourdf_tpu_torch.utils import programs
 
-    mesh = make_mesh((2, 2), ("dp", "sp"))
+    mesh = sh.make_mesh((2, 2), ("dp", "sp"))
     dev = mesh.device
     model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
     t = {k: torch.from_numpy(step[k]).to(dev) for k in ("mats", "targets", "points", "labels")}
     params = {k: torch.from_numpy(v).to(dev) for k, v in step["params"].items()}
-    (best_m, best_l), wall, counts = _counted(lambda: train_step_dp_sp(
-        mesh, model, params, t["mats"], t["targets"], t["points"], t["labels"],
-        num_epochs=EPOCHS, lr=PAR_LR))
-    return {"best_m": best_m, "best_l": best_l, "wall": wall, "counts": counts}
+    calls: collections.Counter = collections.Counter()
+    run, reduce = programs.run, sh.all_reduce
+
+    def counting_run(key, *a, **kw):
+        calls["program calls"] += 1
+        return run(key, *a, **kw)
+
+    def counting_reduce(m, axis, *a, **kw):
+        calls[f"all-reduces over {axis}"] += 1
+        return reduce(m, axis, *a, **kw)
+
+    programs.run, sh.all_reduce = counting_run, counting_reduce
+    out = {}
+    try:
+        for name in ("programs", "replayed", "eager"):
+            calls.clear()
+            (best_m, best_l), wall, counts = _counted(lambda: sh.train_step_dp_sp(
+                mesh, model, params, t["mats"], t["targets"], t["points"], t["labels"],
+                num_epochs=EPOCHS, lr=PAR_LR, eager=name == "eager"))
+            out[name] = {"best_m": best_m, "best_l": best_l, "wall": wall, "counts": counts,
+                         "calls": dict(calls)}
+    finally:
+        programs.run, sh.all_reduce = run, reduce
+    out["captures"] = list(programs.captures)
+    # the path's launches: the default run's, the programs' (with their captures)
+    out["counts"] = out["programs"]["counts"]
+    return out
 
 
 def _par_inputs(dev, frames: np.ndarray) -> tuple[dict, dict]:
@@ -2340,6 +2383,54 @@ def _check_shard_shapes(dev, cases: list) -> None:
     torch.cuda.empty_cache()
 
 
+def _check_dp_sp(dev, step: dict, four: list, note: str) -> None:
+    """[12c]: each rank's three runs (programs, replayed, eager) against the
+    single-process ``train_init`` + ``train_epochs`` on the card, bit for
+    bit, with the same launches, two program calls and two sp all-reduces
+    an epoch."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init
+
+    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
+    theta = model.flat_params({k: torch.from_numpy(v) for k, v in step["params"].items()})
+    mats = torch.from_numpy(step["mats"]).to(dev)
+
+    def plain_step():
+        carry = train_init(theta, mats, PAR_LR)
+        carry, _ = train_epochs(model, carry, mats, torch.from_numpy(step["targets"]).to(dev),
+                                torch.from_numpy(step["points"]).to(dev),
+                                torch.from_numpy(step["labels"]).to(dev), EPOCHS)
+        return carry
+
+    carry, wall, _ = _counted(plain_step)
+    for rank, r in enumerate(four):
+        for name in ("programs", "replayed", "eager"):
+            g = r[name]
+            dl = float((g["best_l"].to(dev) - carry.best_loss).abs().max())
+            dm = float((g["best_m"].to(dev) - carry.best_m).abs().max())
+            print(f"  [12c] rank {rank}, {name}: train_step_dp_sp on (dp 2, sp 2), {PAR_SEQS} "
+                  f"sequences, frame pair 0->1, K={PAR_K}, hidden {PAR_HIDDEN}, {EPOCHS} epochs: "
+                  f"best losses {np.round(g['best_l'].numpy(), 7).tolist()}, max |loss - single| "
+                  f"{dl:.3e}, max |matrix - single| {dm:.3e}; {g['wall']:.3f} s, "
+                  f"{1e3 * g['wall'] / EPOCHS:.3f} ms an epoch, "
+                  f"against {wall:.3f} s single-process ({note}); calls in {EPOCHS} epochs "
+                  f"{g['calls']} (train_init and the dp assembly once); launches "
+                  f"{g['counts']}")
+            if dl or dm or not all(torch.equal(g[k], r["eager"][k]) for k in ("best_m", "best_l")):
+                _fail(f"[12c] the (dp, sp) training step ({name}) differs from the eager one or "
+                      f"the single-process one")
+            if g["counts"] != r["eager"]["counts"]:
+                _fail(f"[12c] rank {rank}'s {name} launches differ from the eager loop's")
+        if r["programs"]["calls"].get("all-reduces over sp") != 2 * EPOCHS:
+            _fail(f"[12c] rank {rank} did not run two sp all-reduces an epoch")
+        if r["programs"]["calls"].get("program calls") != 1 + 2 * EPOCHS:
+            _fail(f"[12c] rank {rank} did not call two programs an epoch")
+        print(f"  [12c] rank {rank}'s programs:")
+        _print_captures(r["captures"])
+        if r["counts"]["nn_bidir"] + r["counts"]["nn_bidir_acc"] < 1:
+            _fail(f"[12c] rank {rank} did not launch an indexed search kernel")
+
+
 def run_parallel(dev, loop: dict) -> dict:
     """Phase 12: the parallel layer with several ranks on the one card (gloo,
     CUDA tensors), each against the single-process path on the card."""
@@ -2349,7 +2440,6 @@ def run_parallel(dev, loop: dict) -> dict:
     from autourdf_tpu_torch.parallel import launch
     from autourdf_tpu_torch.registration import (RegistrationConfig, SegmentInit,
                                                  register_sequences_batched)
-    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init
 
     note = "two ranks on one card, says nothing of multi-card scaling"
     cases = _shard_inputs()
@@ -2415,31 +2505,7 @@ def run_parallel(dev, loop: dict) -> dict:
             _fail("[12b] chamfer_distance did not shard inside the scope, or differs")
 
     # [12c]
-    model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
-    theta = model.flat_params({k: torch.from_numpy(v) for k, v in step["params"].items()})
-    mats = torch.from_numpy(step["mats"]).to(dev)
-
-    def plain_step():
-        carry = train_init(theta, mats, PAR_LR)
-        carry, _ = train_epochs(model, carry, mats, torch.from_numpy(step["targets"]).to(dev),
-                                torch.from_numpy(step["points"]).to(dev),
-                                torch.from_numpy(step["labels"]).to(dev), EPOCHS)
-        return carry
-
-    carry, wall, _ = _counted(plain_step)
-    for rank, r in enumerate(four):
-        dl = (r["best_l"].to(dev) - carry.best_loss).abs()
-        dm = float((r["best_m"].to(dev) - carry.best_m).abs().max())
-        print(f"  [12c] rank {rank}: train_step_dp_sp on (dp 2, sp 2), {PAR_SEQS} sequences, "
-              f"frame pair 0->1, K={PAR_K}, hidden {PAR_HIDDEN}, {EPOCHS} epochs: best losses "
-              f"{np.round(r['best_l'].numpy(), 7).tolist()}, max |loss - single| "
-              f"{float(dl.max()):.3e}, max |matrix - single| {dm:.3e}; {r['wall']:.3f} s "
-              f"against {wall:.3f} s single-process ({note}); launches {r['counts']}")
-        if not (bool((dl <= STEP_ATOL + STEP_RTOL * carry.best_loss.abs()).all())
-                and dm <= STEP_M_ATOL):
-            _fail("[12c] the (dp, sp) training step differs from the single-process one")
-        if r["counts"]["nn_bidir"] + r["counts"]["nn_bidir_acc"] < 1:
-            _fail(f"[12c] rank {rank} did not launch an indexed search kernel")
+    _check_dp_sp(dev, step, four, note)
 
     # [12d]
     model = PoseRegressor("q", PAR_HIDDEN, num_seqs=PAR_SEQS, device=dev)
@@ -3070,6 +3136,123 @@ def run_programs(dev, root: str, cfg, build: dict, icps: dict) -> dict:
     return {"counts": dict(_cuda.launch_counts)}
 
 
+# [16]: refine_joints at its defaults on [6]'s known-DoF build; the CPU port
+# from the same inputs for the first REVOLUTE_CPU_STEPS steps of each fit (a
+# CPU step at T = 10, 2,048 points is some half a second, so whole fits on the
+# CPU would not fit the run)
+REVOLUTE_STEPS, REVOLUTE_CAP, REVOLUTE_CPU_STEPS = 200, 2048, 25
+
+
+@contextlib.contextmanager
+def _recording_fits(fits: list):
+    """Keep every ``fit_revolute_joint`` call that ``refine_joints`` makes in
+    the block: its arguments and its result, cloned."""
+    from autourdf_tpu_torch.joints import refine
+
+    fit = refine.fit_revolute_joint
+
+    def call(*a, **kw):
+        out = fit(*a, **kw)
+        fits.append(([v.clone() for v in a], dict(kw), [v.clone() for v in out]))
+        return out
+
+    refine.fit_revolute_joint = call
+    try:
+        yield fits
+    finally:
+        refine.fit_revolute_joint = fit
+
+
+def run_revolute(dev, cfg, build: dict) -> dict:
+    """Phase 16: ``refine_joints`` on [6]'s known-DoF build (its joints and
+    links, the first sequence's ``CoordMap``) three ways: the eager step
+    loop, the chunk programs (their captures) and the programs replayed.
+    First the search kernel at the fits' shape against its plain version.
+    Every fit's axis, origin, angles and loss and every refined joint must be
+    equal bit for bit, with the same launches, at least one of an indexed
+    search; the axes unit vectors, ``thetas[0] == 0``, the losses finite.
+    Prints wall ms a step, the captures and each fit's gap to the CPU port
+    from the same inputs over its first ``REVOLUTE_CPU_STEPS`` steps (not
+    gated)."""
+    from autourdf_tpu_torch import workflow
+    from autourdf_tpu_torch.joints import refine
+    from autourdf_tpu_torch.ops import knn
+    from autourdf_tpu_torch.utils import programs
+
+    cms, _ = workflow.build_coord_maps(cfg, 5, cfg.start_steps, cfg.end_steps)
+    # the search kernel at the fits' shape (T clouds of point_cap points each
+    # way, padded rows at the sentinel on both sides, forced ties) against its
+    # plain version
+    T = cms[0].coords.shape[0]
+    x, y = (torch.from_numpy(a).to(dev) for a in tie_layout_clouds(
+        np.random.default_rng(16), T, REVOLUTE_CAP, REVOLUTE_CAP))
+    x[:, -200:] = y[:, -300:] = knn.PAD_COORD
+    plan = knn.pick_bidir_plan(T, REVOLUTE_CAP, REVOLUTE_CAP,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    same = all(torch.equal(a, b) for a, b in zip(
+        knn.nn_search_bidirectional(x, y, 1), knn._nn_bidir_plain(x, y, 1), strict=True))
+    print(f"  the fits' search, S={T} N=M={REVOLUTE_CAP} with padded rows and ties: "
+          f"{plan.kernel} (the plan's pick) equal to plain {same}")
+    if not same:
+        _fail("[16] the search kernel disagrees with its plain version at the fits' shape")
+    programs.clear()
+    runs = {}
+    for name in ("eager", "programs", "replayed"):
+        fits: list = []
+        made = len(programs.captures)
+        with _recording_fits(fits):
+            joints, wall, counts = _counted(lambda: refine.refine_joints(
+                build["joints"], build["links"], cms[0], steps=REVOLUTE_STEPS,
+                point_cap=REVOLUTE_CAP, device=dev, eager=name == "eager"))
+        runs[name] = dict(joints=joints, fits=fits, counts=counts)
+        T = fits[0][0][0].shape[0] if fits else 0
+        print(f"  {name}: {len(fits)} fits of {REVOLUTE_STEPS} steps (T = {T} frames, "
+              f"point_cap {REVOLUTE_CAP}) in {wall:.3f} s, "
+              f"{1e3 * wall / max(1, REVOLUTE_STEPS * len(fits)):.3f} ms a step (the run's "
+              f"captures included); {len(programs.captures) - made} captures; launches {counts}")
+        _print_captures(programs.captures[made:])
+    eager = runs["eager"]
+    for name in ("programs", "replayed"):
+        r = runs[name]
+        same = len(r["fits"]) == len(eager["fits"]) and all(
+            torch.equal(a, b) for f, g in zip(r["fits"], eager["fits"]) for a, b in zip(f[2], g[2]))
+        same = same and all(np.array_equal(getattr(a, f), getattr(b, f))
+                            for a, b in zip(r["joints"], eager["joints"], strict=True)
+                            for f in ("global_axis", "global_pos", "local_axis", "local_pos"))
+        print(f"  {name} against eager: every fit and refined joint equal bit for bit {same}; "
+              f"the same launches {r['counts'] == eager['counts']}")
+        if not same or r["counts"] != eager["counts"]:
+            _fail(f"[16] the revolute fit's {name} differ from its eager loop")
+    fits = runs["programs"]["fits"]
+    if not fits:
+        _fail("[16] refine_joints fitted no joint")
+    for j, (args, kw, (axis, origin, thetas, loss)) in enumerate(fits):
+        norm = float(torch.linalg.norm(axis))
+        print(f"  fit {j}: loss {float(loss):.7f}, |axis| {norm:.9f}, axis "
+              f"{np.round(axis.cpu().numpy(), 6).tolist()}, origin "
+              f"{np.round(origin.cpu().numpy(), 6).tolist()}, thetas[0] {float(thetas[0])}")
+        if abs(norm - 1.0) > 1e-6 or float(thetas[0]) != 0.0 or not (
+                math.isfinite(float(loss)) and bool(torch.isfinite(thetas).all())):
+            _fail(f"[16] fit {j} gave a non-unit axis, a moved first angle or a non-finite loss")
+    counts = runs["programs"]["counts"]
+    if counts["nn_bidir"] + counts["nn_bidir_acc"] < 1:
+        _fail("[16] the revolute fit did not launch an indexed search kernel")
+    t0 = time.time()
+    for j, (args, kw, _) in enumerate(fits):
+        card = refine.fit_revolute_joint(*args, steps=REVOLUTE_CPU_STEPS)
+        cpu = refine.fit_revolute_joint(*(a.cpu() for a in args), steps=REVOLUTE_CPU_STEPS,
+                                        eager=True)
+        a, b = (v.cpu().numpy().astype(np.float64) for v in (card.axis, cpu.axis))
+        angle = math.degrees(math.atan2(np.linalg.norm(np.cross(a, b)), float(a @ b)))
+        print(f"  fit {j} at {REVOLUTE_CPU_STEPS} steps, the card against the CPU port: axis "
+              f"{angle:.3e} deg, max |origin diff| "
+              f"{float((card.origin.cpu() - cpu.origin).abs().max()):.3e}, max |theta diff| "
+              f"{float((card.thetas.cpu() - cpu.thetas).abs().max()):.3e}, loss "
+              f"{float(card.loss):.9f} against {float(cpu.loss):.9f} (not gated)")
+    print(f"  the CPU comparison took {time.time() - t0:.1f} s")
+    return {"counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3138,7 +3321,7 @@ def main() -> int:
               "of [4]")
         icps: dict = {}             # the sites' first ICPs, which [15] replays eagerly
         with _recording_icps(icps):
-            paths["urdf"] = run_urdf_stage(dev, main_path["cfg"])
+            paths["urdf"], mst_build = run_urdf_stage(dev, main_path["cfg"])
         print("[7] path A: workflow.run_registration(mlp_icp=True, use_normals=True), FPS seeds")
         paths["register_icp"] = run_icp_path(dev, roots["icp"])
         print("[8] large clouds: workflow.run_registration at 20,000 points per frame")
@@ -3172,6 +3355,10 @@ def main() -> int:
         os.makedirs(os.path.join(tmp, "programs"))
         paths["programs"] = run_programs(dev, os.path.join(tmp, "programs"), main_path["cfg"],
                                          builds["known DoF"], icps)
+        print(f"[16] the revolute-joint fit: refine_joints on [6]'s known-DoF build "
+              f"({REVOLUTE_STEPS} steps, point_cap {REVOLUTE_CAP}), eager, as programs and "
+              f"replayed, bit for bit")
+        paths["revolute"] = run_revolute(dev, main_path["cfg"], mst_build)
 
     sources = {"nn_bidir": "autourdf_tpu/ops/knn.py:149",
                "nn_min_bidir": "autourdf_tpu/ops/knn.py:313",

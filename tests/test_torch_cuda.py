@@ -578,6 +578,90 @@ def test_graphed_chain_fit_equals_eager_on_card(cuda):
         assert launched[name] == launched["eager"], (name, launched)
 
 
+def _revolute_case(dev, T=6, P=512, seed=0):
+    """A child cloud turning about a tilted axis, ragged observations, an
+    axis and origin guess off the truth."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform([-0.1, -0.05, -0.05], [0.4, 0.05, 0.05], (P, 3)).astype(np.float32)
+    u, o = np.array([0.2, 0.0, 1.0]) / np.hypot(0.2, 1.0), np.array([0.05, 0.02, 0.0])
+    parent_T = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    parent_T[:, :3, 3] = [0.1, -0.2, 0.3]
+    obs = np.zeros((T, P, 3), np.float32)
+    mask = np.zeros((T, P), bool)
+    for t in range(T):
+        n = P - 37 * t
+        Rm = Rotation.from_rotvec(u * 0.12 * t).as_matrix()
+        obs[t, :n] = ((x[:n] - o) @ Rm.T + o + parent_T[t, :3, 3]
+                      + rng.normal(scale=2e-3, size=(n, 3)))
+        mask[t, :n] = True
+    u0 = np.array([0.3, 0.1, 0.9], np.float32)
+    u0 /= np.linalg.norm(u0)
+    arrays = (parent_T, obs, mask, u0, np.zeros(3, np.float32),
+              (0.1 * np.arange(T)).astype(np.float32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def test_revolute_fit_programs_equal_eager_on_card(cuda):
+    """120 steps of the revolute fit in chunk programs of 50 (graphs of 50
+    and 20 steps), then replayed, against the eager step loop: axis, origin,
+    angles and loss bit for bit, with the same launches."""
+    from autourdf_tpu_torch.joints.refine import fit_revolute_joint
+
+    args = _revolute_case(cuda)
+    res, launched = {}, {}
+    for name in ("eager", "programs", "replayed"):
+        before = dict(_cuda.launch_counts)
+        res[name] = fit_revolute_joint(*args, steps=120, eager=name == "eager")
+        torch.cuda.synchronize(cuda)
+        launched[name] = {k: _cuda.launch_counts[k] - before[k] for k in before}
+    for name in ("programs", "replayed"):
+        for f in res[name]._fields:
+            assert torch.equal(getattr(res[name], f), getattr(res["eager"], f)), (name, f)
+        assert launched[name] == launched["eager"], (name, launched)
+    assert launched["eager"]["nn_bidir"] + launched["eager"]["nn_bidir_acc"] == 120
+    assert float(res["programs"].thetas[0]) == 0.0 and torch.isfinite(res["programs"].loss)
+
+
+def test_dp_sp_train_step_programs_equal_eager_on_card(cuda):
+    """``train_step_dp_sp`` with four gloo ranks on the card: the programs
+    (captured, then replayed) give the eager loop's best matrices and losses
+    on every rank, bit for bit, with the same launches, and those of the
+    single-process ``train_init`` + ``train_epochs``."""
+    import torch_parallel_ranks as ranks
+
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.parallel import launch
+    from autourdf_tpu_torch.registration.optimizer import train_epochs, train_init
+
+    S, N, M, K, H = 4, 300, 256, 3, 64
+    rng = np.random.default_rng(13)
+    mats = np.tile(np.eye(4, dtype=np.float32), (S, K, 1, 1))
+    mats[:, :, :3, 3] = rng.normal(scale=0.2, size=(S, K, 3))
+    params = {k: v.detach().numpy() for k, v in PoseRegressor(
+        "q", H, num_seqs=S, generator=torch.Generator().manual_seed(1)).named_parameters()}
+    step = dict(S=S, H=H, epochs=40, params=params, mats=mats,
+                targets=rng.normal(scale=0.3, size=(S, M, 3)).astype(np.float32),
+                points=rng.normal(scale=0.1, size=(S, N, 3)).astype(np.float32),
+                labels=rng.integers(0, K, size=(S, N)).astype(np.int64))
+    results = launch.run(ranks.dp_sp_train_step_both_ways, 4, (step,), device="cuda")
+
+    model = PoseRegressor("q", H, num_seqs=S, device=cuda)
+    theta = model.flat_params({k: torch.from_numpy(v) for k, v in params.items()})
+    m = torch.from_numpy(mats).to(cuda)
+    carry = train_init(theta, m, 2e-4)
+    carry, _ = train_epochs(model, carry, m, *(torch.from_numpy(step[k]).to(cuda)
+                                               for k in ("targets", "points", "labels")), 40)
+    for r in results:
+        for name in ("programs", "replayed", "eager"):
+            best_m, best_l, counts = r[name]
+            assert torch.equal(best_m, carry.best_m.cpu()), name
+            assert torch.equal(best_l, carry.best_loss.cpu()), name
+            assert counts == r["eager"][2], (name, counts)
+        assert r["eager"][2]["nn_bidir"] + r["eager"][2]["nn_bidir_acc"] == 40
+
+
 def test_program_launch_counts_on_card(cuda):
     """A program that launches the indexed search counts one launch a call:
     the warm-up's and the capture's launches are taken back out."""

@@ -17,7 +17,8 @@ step's best losses 1e-5 relative and 1e-6 absolute and its best matrices
 1e-5 absolute, and the dp registration's losses 1e-5 absolute, against JAX
 (the JAX package's own tolerances for its sharded paths, whose Adam epochs
 compound last-bit differences), and exact against the port's own
-single-process ``train_epochs`` and ``register_sequences_batched``.
+single-process ``train_epochs`` and ``register_sequences_batched``.  The
+training step's programs equal its eager loop exactly.
 """
 
 import concurrent.futures
@@ -186,6 +187,18 @@ def test_sharded_chamfer_equals_single_process(inputs, port, name):
         torch.testing.assert_close(a, b, **exact)
 
 
+@pytest.mark.parametrize("name", list(chamfer_inputs()))
+def test_search_split_equals_sharded_search(port, name):
+    """``search_local`` -> ``search_reduce`` -> ``search_unpack``, the cut
+    the training step's programs make, gives ``sharded_search``'s result,
+    index for index, on every rank."""
+    i = list(chamfer_inputs()).index(name)
+    for r in port["sp"].result():
+        for a, b in zip(r["cases"][i]["split"], r["cases"][i]["search"], strict=True):
+            assert a.dtype == b.dtype
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name", ["128x256", "64x160 grad"])
 def test_chamfer_collective_equals_sharded_chamfer(port, name):
     """The per-shard form, each rank passing its quarter of the target,
@@ -240,6 +253,16 @@ def test_dp_sp_train_step_matches_jax(inputs, port):
                             st["epochs"])
     torch.testing.assert_close(best_l, carry.best_loss, rtol=0, atol=0)
     torch.testing.assert_close(best_m, carry.best_m, rtol=0, atol=0)
+
+
+def test_dp_sp_train_step_programs_equal_eager(port):
+    """The default training step (programs A and B around the all-reduces)
+    gives the eager loop's best matrices and losses, bit for bit, on every
+    rank."""
+    for r in port["dp"].result():
+        eager_m, eager_l = r["eager"]
+        torch.testing.assert_close(r["best_m"], eager_m, rtol=0, atol=0)
+        torch.testing.assert_close(r["best_l"], eager_l, rtol=0, atol=0)
 
 
 def test_dp_registration_matches_jax(inputs, port):

@@ -16,6 +16,10 @@ package's drivers and fits at the tolerances of the parity tests they extend.
   (the port's programs of 5, 5 and 2 epochs, and of 12).
 - The chain fit in chunks of 25 equals the step-by-step loop exactly, and
   JAX's ``refine_chain`` at ``test_torch_chain.py``'s tolerances.
+- The revolute-joint fit in chunk programs (one chunk of 30 steps, chunks of
+  50 and 30, of 50, 50 and 20, and none) equals its step-by-step loop exactly, and JAX's
+  ``fit_revolute_joint`` and ``refine_joints`` at ``test_torch_chain.py``'s
+  tolerances.
 """
 
 import jax
@@ -23,11 +27,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_chain import (assert_chain_results_match, hinge_problem, port_joints,
+from scipy.spatial.transform import Rotation as ScipyRot
+from test_structure_joints_mesh import make_hinge_coordmap
+from test_torch_chain import GEOM_ATOL
+from test_torch_chain import LOSS_RTOL as FIT_LOSS_RTOL
+from test_torch_chain import (assert_chain_results_match, hinge_problem, jittered, port_joints,
                               port_links, run_jax_chain)
 from test_torch_registration import H, K, S, T, hinge_frames, ragged_batch
 from test_torch_structure import coord_map_from_jax
 
+import autourdf_tpu.joints.refine as jrefine
 from autourdf_tpu.models.regmlp import PoseRegressor as JPoseRegressor
 from autourdf_tpu.models.regmlp import init_params as j_init_params
 from autourdf_tpu.registration import RegistrationConfig as JConfig
@@ -36,6 +45,7 @@ from autourdf_tpu.registration import optimizer as jopt
 from autourdf_tpu.registration import register_sequences_batched as j_batched
 from autourdf_tpu.registration import register_sequences_fused as j_fused
 from autourdf_tpu_torch.joints import chain as tchain
+from autourdf_tpu_torch.joints import refine as trefine
 from autourdf_tpu_torch.models.regmlp import PoseRegressor, params_from_jax
 from autourdf_tpu_torch.registration import (
     RegistrationConfig,
@@ -362,3 +372,66 @@ def test_chain_fit_prints_at_chunk_boundaries(capsys):
     assert [ln.split()[1] for ln in out.splitlines() if " loss " in ln] == [
         "25/60", "50/60", "60/60"]
     assert out.count("axis net deg") == 1            # the window closes at the end
+
+
+# ---------------------------------------------------------------------------
+# the revolute-joint fit in chunk programs
+# ---------------------------------------------------------------------------
+
+def _revolute_inputs():
+    """test_torch_chain.py's single-joint fit: a child cloud turning about z
+    through an origin off the parent's, an axis guess 25 degrees off."""
+    rng = np.random.default_rng(0)
+    T, P = 5, 256
+    x = rng.uniform([-0.1, -0.05, -0.05], [0.4, 0.05, 0.05], (200, 3)).astype(np.float32)
+    u_true, o_true = np.array([0.0, 0.0, 1.0]), np.array([0.05, 0.02, 0.0])
+    parent_T = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    obs = np.zeros((T, P, 3), np.float32)
+    mask = np.zeros((T, P), bool)
+    for t in range(T):
+        Rm = ScipyRot.from_rotvec(u_true * 0.15 * t).as_matrix()
+        obs[t, :200] = (x - o_true) @ Rm.T + o_true + rng.normal(scale=2e-3, size=(200, 3))
+        mask[t, :200] = True
+    u0 = np.array([0.3, 0.2, 0.9], np.float32)
+    u0 /= np.linalg.norm(u0)
+    return parent_T, obs, mask, u0, np.zeros(3, np.float32), (0.1 * np.arange(T)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("steps", [30, 80, 120, 0])
+def test_revolute_fit_programs_equal_the_step_loop(steps):
+    assert trefine.DISPATCH_STEPS == 50
+    args = [torch.from_numpy(a) for a in _revolute_inputs()]
+    programmed = trefine.fit_revolute_joint(*args, steps=steps)
+    eager = trefine.fit_revolute_joint(*args, steps=steps, eager=True)
+    _assert_same(programmed, eager)
+    assert float(programmed.thetas[0]) == 0.0
+    assert np.isinf(float(programmed.loss)) == (steps == 0)
+
+
+def test_revolute_fit_programs_match_jax():
+    args = _revolute_inputs()
+    jres = jrefine.fit_revolute_joint(*(jnp.asarray(a) for a in args), steps=80)
+    tres = trefine.fit_revolute_joint(*(torch.from_numpy(a) for a in args), steps=80)
+    np.testing.assert_allclose(float(tres.loss), float(jres.loss), rtol=FIT_LOSS_RTOL)
+    for f in ("axis", "origin", "thetas"):
+        np.testing.assert_allclose(getattr(tres, f).numpy(), np.asarray(getattr(jres, f)),
+                                   atol=GEOM_ATOL, err_msg=f)
+
+
+def test_refine_joints_programs_equal_eager_and_match_jax():
+    """As ``test_torch_chain.py test_refine_joints_matches_jax`` (5 steps,
+    inside the window where the two packages agree), through the programs
+    and through the step loop."""
+    _, jlinks, jjoints, _ = hinge_problem()
+    cm_j = jittered(make_hinge_coordmap(num_frames=6, angle_step=0.2))
+    want = jrefine.refine_joints(jjoints, jlinks, cm_j, steps=5, point_cap=256)
+    got = {eager: trefine.refine_joints(port_joints(jjoints), port_links(jlinks),
+                                        coord_map_from_jax(cm_j), steps=5, point_cap=256,
+                                        device="cpu", eager=eager)
+           for eager in (False, True)}
+    for a, e, b in zip(got[False], got[True], want, strict=True):
+        assert (a.parent_link, a.child_link) == (b.parent_link, b.child_link)
+        for f in ("global_axis", "global_pos", "local_axis", "local_pos"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(e, f), err_msg=f)
+            np.testing.assert_allclose(getattr(a, f), getattr(b, f), atol=GEOM_ATOL, err_msg=f)

@@ -269,6 +269,33 @@ def test_native_library_builds_into_the_package():
     assert os.path.dirname(so) == os.path.join(REPO, "autourdf_tpu_torch", "_build")
 
 
+def test_package_data_ships_every_source_the_port_builds(tmp_path, monkeypatch):
+    """The files setuptools would put in a wheel of a checkout (its
+    ``build_py`` outputs under ``pyproject.toml``'s package data; a checkout
+    has no MANIFEST.in, and a stale ``*.egg-info`` file list, which
+    ``include_package_data`` would read, is not part of it) hold every source
+    of ``autourdf_tpu_torch/csrc``: the kernels and the native library's
+    ``native.cpp`` (``io/native.py SOURCE``), without which an installed port
+    would fall back to numpy."""
+    from setuptools.config.pyprojecttoml import apply_configuration
+    from setuptools.dist import Distribution
+
+    monkeypatch.chdir(REPO)
+    dist = Distribution({"script_name": "setup.py"})
+    apply_configuration(dist, "pyproject.toml")
+    dist.include_package_data = False
+    build = dist.get_command_obj("build_py")
+    build.build_lib = str(tmp_path)
+    build.ensure_finalized()
+    shipped = {os.path.relpath(f, tmp_path) for f in build.get_outputs(include_bytecode=False)}
+    csrc = os.path.join(REPO, "autourdf_tpu_torch", "csrc")
+    sources = {os.path.relpath(os.path.join(csrc, f), REPO) for f in os.listdir(csrc)}
+    assert os.path.isfile(native.SOURCE)
+    assert os.path.relpath(native.SOURCE, REPO) in sources
+    assert {"autourdf_tpu_torch/csrc/knn.cu", "autourdf_tpu_torch/csrc/geom.cu"} <= sources
+    assert sources <= shipped, sorted(sources - shipped)
+
+
 @pytest.mark.parametrize("name", sorted(_volumes()))
 def test_native_marching_matches_numpy_and_jax(name, monkeypatch):
     vol = _volumes()[name]

@@ -16,7 +16,8 @@ from autourdf_tpu_torch.parallel import (
     sharded_chamfer,
     train_step_dp_sp,
 )
-from autourdf_tpu_torch.parallel.sharding import sharded_search
+from autourdf_tpu_torch.parallel.sharding import (search_local, search_reduce, search_unpack,
+                                                  sharded_search)
 
 
 def _t(a, **kw):
@@ -41,8 +42,12 @@ def sp_cases(cases, auto):
             loss.sum().backward()
             r["gx"], r["gy"] = x.grad, y.grad
         xs, ys = x.detach(), y.detach()
-        r["search"] = sharded_search(mesh, xs if xs.dim() == 3 else xs[None],
-                                     ys if ys.dim() == 3 else ys[None])
+        xs, ys = (xs if xs.dim() == 3 else xs[None]), (ys if ys.dim() == 3 else ys[None])
+        r["search"] = sharded_search(mesh, xs, ys)
+        # the split as train_step_dp_sp runs it: local, then the collectives
+        # in place on the local result, then the unpack
+        key, yside = search_local(mesh, xs, ys)
+        r["split"] = search_unpack(*search_reduce(mesh, key, yside))
         if ys.shape[-2] % 4 == 0:
             r["collective"] = _collective(mesh, c)
         out["cases"].append(r)
@@ -105,16 +110,18 @@ def _collective(mesh, c):
 
 
 def dp_sp_and_registration(step, reg):
-    """Mesh (2, 2) ("dp", "sp"): ``train_step_dp_sp``; then mesh (4,) "dp":
-    ``register_sequences_sharded`` inside its scope."""
+    """Mesh (2, 2) ("dp", "sp"): ``train_step_dp_sp`` as programs and
+    eagerly; then mesh (4,) "dp": ``register_sequences_sharded`` inside its
+    scope."""
     from autourdf_tpu_torch.registration import RegistrationConfig, SegmentInit
 
     mesh = make_mesh((2, 2), ("dp", "sp"), device="cpu")
     model = PoseRegressor("q", step["H"], num_seqs=step["S"])
     params = {k: torch.from_numpy(v) for k, v in step["params"].items()}
-    best_m, best_l = train_step_dp_sp(mesh, model, params, _t(step["mats"]), _t(step["targets"]),
-                                      _t(step["points"]), _t(step["labels"]),
-                                      num_epochs=step["epochs"])
+    args = (mesh, model, params, _t(step["mats"]), _t(step["targets"]), _t(step["points"]),
+            _t(step["labels"]))
+    best_m, best_l = train_step_dp_sp(*args, num_epochs=step["epochs"])
+    eager = train_step_dp_sp(*args, num_epochs=step["epochs"], eager=True)
 
     dp = make_mesh((4,), ("dp",), device="cpu")
     model = PoseRegressor("q", reg["H"], num_seqs=reg["S"])
@@ -125,7 +132,27 @@ def dp_sp_and_registration(step, reg):
     with mesh_scope(dp):
         res = register_sequences_sharded(dp, model, cfg, to_t(reg["sp"]), to_t(reg["ap"]), init,
                                          _t(reg["frames"]))
-    return {"best_m": best_m, "best_l": best_l, "reg": res}
+    return {"best_m": best_m, "best_l": best_l, "eager": eager, "reg": res}
+
+
+def dp_sp_train_step_both_ways(step, device=None):
+    """Mesh (2, 2) ("dp", "sp") on ``device`` (None: the card ``make_mesh``
+    picks): ``train_step_dp_sp`` as programs, twice (captured on the card,
+    then replayed), and eagerly, with the launch counts of each run."""
+    from autourdf_tpu_torch.ops import _cuda
+
+    mesh = make_mesh((2, 2), ("dp", "sp"), device=device)
+    dev = mesh.device
+    model = PoseRegressor("q", step["H"], num_seqs=step["S"], device=dev)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in step["params"].items()}
+    args = [_t(step[k]).to(dev) for k in ("mats", "targets", "points", "labels")]
+    out = {}
+    for name in ("programs", "replayed", "eager"):
+        before = dict(_cuda.launch_counts)
+        best = train_step_dp_sp(mesh, model, params, *args, num_epochs=step["epochs"],
+                                eager=name == "eager")
+        out[name] = best + ({k: _cuda.launch_counts[k] - before[k] for k in before},)
+    return out
 
 
 def fails_on_rank(rank):
