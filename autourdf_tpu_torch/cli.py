@@ -11,6 +11,8 @@
         -> evaluate)
     python -m autourdf_tpu_torch.cli view --urdf robot.urdf --out-dir out --sweep --interactive
     python -m autourdf_tpu_torch.cli <stage> ... --device cpu   (plain PyTorch path)
+    python -m autourdf_tpu_torch.cli register ... --trace   (the stage's spans in
+        data/telemetry.json)
 
 ``urdf`` takes every flag of ``python -m autourdf_tpu.cli urdf`` with its
 defaults: the kinematic-chain fit (``--refine chain``), the motion tree
@@ -75,6 +77,13 @@ def _cfg(args) -> PipelineConfig:
         end_steps=getattr(args, "end_steps", args.num_step),
         noise=not getattr(args, "no_noise", False), pix=getattr(args, "pix", 800),
     )
+
+
+def _add_trace(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace", action="store_true",
+                   help="record the stage's spans: each record in telemetry.json gains "
+                        "the spans' counts, host and device seconds by name, and the "
+                        "device programs' counters")
 
 
 def _add_urdf_flags(p: argparse.ArgumentParser) -> None:
@@ -167,6 +176,7 @@ def main(argv=None) -> int:
     p.add_argument("--corr-every", type=int, default=1,
                    help="refresh NN correspondences every k epochs (1 = exact "
                         "reference semantics)")
+    _add_trace(p)
 
     p = sub.add_parser("urdf", help="structure discovery -> URDF")
     _add_common(p, 2024, "accepted for parity with the JAX CLI; the stage draws nothing")
@@ -175,6 +185,7 @@ def main(argv=None) -> int:
     p.add_argument("--end-steps", dest="end_steps", type=int, default=10)
     p.add_argument("--end-video", "--end_video", dest="end_video", type=int, default=1)
     _add_urdf_flags(p)
+    _add_trace(p)
 
     p = sub.add_parser("evaluate", help="joint accuracy + resim chamfer vs gt")
     _add_common(p, 2024, "seed of the re-simulation's commands and camera rigs")
@@ -185,6 +196,7 @@ def main(argv=None) -> int:
                    help="override predicted-URDF base euler 'r,p,y' (the registry value "
                         "corrects the reference's rolled real scans; pass 0,0,0 for "
                         "self-captured real-layout data)")
+    _add_trace(p)
 
     p = sub.add_parser("view", help="render a URDF: axis snapshot + joint sweep GIFs")
     _add_common(p, 2024, "accepted for parity with the JAX CLI; the stage draws nothing")
@@ -206,9 +218,14 @@ def main(argv=None) -> int:
     p.add_argument("--ground", action="store_true")
     p.add_argument("--no_noise", action="store_true")
     _add_urdf_flags(p)
+    _add_trace(p)
 
     args = parser.parse_args(argv)
     cfg = _cfg(args)
+    if getattr(args, "trace", False):
+        from .utils import telemetry
+
+        telemetry.enable()
 
     from . import workflow
 

@@ -41,6 +41,7 @@ from ..ops.icp import masked_icp_clusters
 from ..ops.kmeans import lloyd
 from ..ops.plane import estimate_normals
 from ..utils import programs
+from ..utils.telemetry import span
 from .optimizer import train_pose_mlp, transform_by_labels
 from .segments import SegmentInit, local_points_from_labels
 
@@ -185,20 +186,24 @@ def register_sequences_batched(
     for i in range(T - 1):
         target = frames[:, i + 1]
         target_mask = masks[:, i + 1] if masks is not None else None
-        step_res = _train(model, cfg, step_theta, matrices, target, points, labels,
-                          target_mask, points_mask, cfg.lr_step, eager)
+        with span("register.phase", pair=i, kind="step"):
+            step_res = _train(model, cfg, step_theta, matrices, target, points, labels,
+                              target_mask, points_mask, cfg.lr_step, eager)
         step_theta = step_res.params
         if cfg.mlp_icp:
-            new_m = _icp_phase(cfg, points, labels, step_res.best_matrices, target, eager)
+            with span("register.phase", pair=i, kind="icp"):
+                new_m = _icp_phase(cfg, points, labels, step_res.best_matrices, target, eager)
             loss = step_res.best_loss
         else:
-            anchor_res = _train(model, cfg, anchor_theta, step_res.best_matrices, target,
-                                anchor_points, anchor_labels, target_mask, anchor_mask,
-                                cfg.lr_anchor, eager)
+            with span("register.phase", pair=i, kind="anchor"):
+                anchor_res = _train(model, cfg, anchor_theta, step_res.best_matrices, target,
+                                    anchor_points, anchor_labels, target_mask, anchor_mask,
+                                    cfg.lr_anchor, eager)
             anchor_theta = anchor_res.params
             new_m = anchor_res.best_matrices
             loss = anchor_res.best_loss
-        points, labels = _resample_phase(cfg, new_m, target, target_mask, eager)
+        with span("register.resample", device=True):
+            points, labels = _resample_phase(cfg, new_m, target, target_mask, eager)
         points_mask = target_mask
         matrices = new_m
         out_m.append(matrices)

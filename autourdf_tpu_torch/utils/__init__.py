@@ -1,3 +1,3 @@
-from .telemetry import Telemetry, torch_trace
+from .telemetry import Telemetry, span
 
-__all__ = ["Telemetry", "torch_trace"]
+__all__ = ["Telemetry", "span"]

@@ -34,6 +34,10 @@ Kernel launches: the kernels' wrappers count a launch on the host
 program records the counts its capture added and adds them again at every
 replay; the warm-up's and the capture's own launches are taken back out, so
 a run counts each launch once per call, as the eager loop does.
+
+With spans on (``utils/telemetry.py``) a warm-up, a capture and a call (its
+inputs copied in and the graph replayed, or the plain run) are each a span;
+``counters`` counts them, spans or no spans.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from collections import OrderedDict
 import torch
 
 from ..ops import _cuda
+from .telemetry import span
 
 # Programs kept alive (each holds its graph and its memory pool), as the JAX
 # package's ``_batched_phases`` keeps ``lru_cache(maxsize=16)`` of them.
@@ -61,6 +66,10 @@ _capture_streams: dict[torch.device, torch.cuda.Stream] = {}
 # instantiation seconds, graph nodes, pool bytes), for the reports of
 # chip_smoke.py; ``captures.clear()`` starts a new list.
 captures: list[dict] = []
+
+# Warm-ups, captures, replays (or plain runs) and programs dropped from the
+# cache, in this process.
+counters = {"warmups": 0, "captures": 0, "replays": 0, "evictions": 0}
 
 
 def _flatten(tree, leaves: list):
@@ -118,12 +127,14 @@ class Program:
     """A function of tensor trees captured once and replayed (on a CUDA
     device) or run on its static buffers (on the CPU).  ``name`` labels its
     capture record and names its family for the warm-up; ``warm``, where
-    given, is what the warm-up runs instead of ``fn``."""
+    given, is what the warm-up runs instead of ``fn``; ``epochs``, the
+    training epochs a call runs, goes into the capture's record."""
 
-    def __init__(self, fn, name: str, warm=None):
+    def __init__(self, fn, name: str, warm=None, epochs: int | None = None):
         self.fn = fn
         self.name = self.family = name
         self.warm = warm
+        self.epochs = epochs
         self.stats: dict = {}
         self._inputs: list | None = None
         self._in_spec = None
@@ -135,26 +146,29 @@ class Program:
     def __call__(self, *args):
         leaves: list = []
         spec = _flatten(args, leaves)
-        if self._inputs is None:
+        fresh = self._inputs is None
+        if fresh:
             self._in_spec = spec
             self._inputs = [None if t is None else _static_copy(t) for t in leaves]
             dev = next((t.device for t in leaves if t is not None), torch.device("cpu"))
             if dev.type == "cuda":
                 self._capture(dev)
-        else:
-            if spec != self._in_spec or len(leaves) != len(self._inputs):
-                raise ValueError(f"program {self.name}: inputs of another structure")
-            for buf, t in zip(self._inputs, leaves):
-                if (buf is None) != (t is None):
-                    raise ValueError(f"program {self.name}: an input appeared or went away")
-                if buf is not None and t is not buf:
-                    buf.copy_(t)
-        if self._graph is not None:
-            self._graph.replay()
-            for k, n in self._delta.items():
-                _cuda.launch_counts[k] += n
-        else:
-            self._run_plain()
+        counters["replays"] += 1
+        with span("program.replay", device=True, family=self.family):
+            if not fresh:
+                if spec != self._in_spec or len(leaves) != len(self._inputs):
+                    raise ValueError(f"program {self.name}: inputs of another structure")
+                for buf, t in zip(self._inputs, leaves):
+                    if (buf is None) != (t is None):
+                        raise ValueError(f"program {self.name}: an input appeared or went away")
+                    if buf is not None and t is not buf:
+                        buf.copy_(t)
+            if self._graph is not None:
+                self._graph.replay()
+                for k, n in self._delta.items():
+                    _cuda.launch_counts[k] += n
+            else:
+                self._run_plain()
         return _unflatten(self._out_spec, iter(self._outputs))
 
     def _args(self):
@@ -186,13 +200,18 @@ class Program:
 
     def _warm_up_and_capture(self, dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
+        warm_s = 0.0
         if (self.family, dev) not in _warmed:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                (self.warm or self.fn)(*self._args())
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
+            counters["warmups"] += 1
+            t0 = time.perf_counter()
+            with span("program.warmup", family=self.family):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    (self.warm or self.fn)(*self._args())
+                torch.cuda.current_stream(dev).wait_stream(side)
+                torch.cuda.synchronize(dev)
+            warm_s = time.perf_counter() - t0
             _warmed.add((self.family, dev))
         before = dict(_cuda.launch_counts)
         reserved = torch.cuda.memory_reserved(dev)
@@ -202,32 +221,36 @@ class Program:
         if dev not in _capture_streams:
             _capture_streams[dev] = torch.cuda.Stream(dev)
         stream = _capture_streams[dev]
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            graph.capture_begin(capture_error_mode="global")
-            try:
-                leaves: list = []
-                self._out_spec = _flatten(self.fn(*self._args()), leaves)
-                self._outputs = [
-                    None if t is None
-                    else t.detach().clone() if t.untyped_storage().data_ptr() in in_storage
-                    else t.detach()
-                    for t in leaves]
-            except BaseException:
-                with contextlib.suppress(RuntimeError):   # the capture was invalidated
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        t1 = time.perf_counter()
-        nodes = _graph_node_count(graph)
-        graph.instantiate()
-        torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
+        counters["captures"] += 1
+        with span("program.capture", family=self.family) as sp:
+            t0 = time.perf_counter()
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="global")
+                try:
+                    leaves: list = []
+                    self._out_spec = _flatten(self.fn(*self._args()), leaves)
+                    self._outputs = [
+                        None if t is None
+                        else t.detach().clone() if t.untyped_storage().data_ptr() in in_storage
+                        else t.detach()
+                        for t in leaves]
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):   # the capture was invalidated
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            t1 = time.perf_counter()
+            nodes = _graph_node_count(graph)
+            graph.instantiate()
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            sp.note(nodes=nodes)
         self._delta = {k: _cuda.launch_counts[k] - before[k] for k in _cuda.launch_counts}
         self._graph = graph
         self.stats = dict(name=self.name, capture_s=t1 - t0, instantiate_s=t2 - t1, nodes=nodes,
                           pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
-                          launches={k: n for k, n in self._delta.items() if n})
+                          launches={k: n for k, n in self._delta.items() if n},
+                          warm_s=warm_s, epochs=self.epochs)
 
 
 def run(key: tuple, fn, *args, warm=None):
@@ -237,16 +260,19 @@ def run(key: tuple, fn, *args, warm=None):
     ``jax.jit`` takes as ``static_argnames`` belong in ``key``.  ``key[0]``
     names the program's family: the first capture of a family in a process
     warms up first, with ``warm`` (a shorter run of the same operations on
-    the same inputs) where given.  Returns the program's static outputs (see
-    the module's docstring)."""
+    the same inputs) where given.  A ``train_epochs`` key holds the epochs a
+    call runs at ``key[3]`` (``registration/optimizer.py``).  Returns the
+    program's static outputs (see the module's docstring)."""
     leaves: list = []
     spec = _flatten(args, leaves)
     full = (key, _signature(spec, leaves))
     prog = _cache.get(full)
     if prog is None:
-        prog = _cache[full] = Program(fn, str(key[0]), warm=warm)
+        epochs = key[3] if key[0] == "train_epochs" else None
+        prog = _cache[full] = Program(fn, str(key[0]), warm=warm, epochs=epochs)
         while len(_cache) > CACHE_SIZE:
             _cache.popitem(last=False)
+            counters["evictions"] += 1
     else:
         _cache.move_to_end(full)
     return prog(*args)

@@ -27,7 +27,7 @@ from .config import PipelineConfig, get_robot
 from .io.artifacts import list_sequence_dirs, load_registration, save_registration
 from .io.ply import read_ply
 from .ops.knn import PAD_COORD
-from .utils.telemetry import Telemetry
+from .utils.telemetry import Telemetry, span
 
 
 def _sequence_dirs(raw_dir: str, num_videos: int) -> list[str]:
@@ -139,7 +139,8 @@ def registration_inputs(cfg: PipelineConfig, seed: int = 0, mlp_icp: bool = Fals
     from .registration import RegistrationConfig, initial_segments
 
     dev = resolve_device(device)
-    names, frames, masks = load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
+    with span("register.read_frames"):
+        names, frames, masks = load_raw_sequences_padded(cfg.raw_dir(), cfg.num_videos)
     S, T, N, _ = frames.shape
     K = cfg.num_segments()
     if corr_every > 1 and cfg.epochs % corr_every:
@@ -155,10 +156,12 @@ def registration_inputs(cfg: PipelineConfig, seed: int = 0, mlp_icp: bool = Fals
     frames_t = torch.from_numpy(frames).to(dev)
     masks_t = torch.from_numpy(masks).to(dev) if masks is not None else None
     gen = torch.Generator(device=dev).manual_seed(seed)
-    init = initial_segments(gen, frames_t[0, 0], K, n_init=10, seed_mode=cfg.seed_mode,
-                            use_normals=use_normals,
-                            mask=masks_t[0, 0] if masks_t is not None else None)
-    model, step_params, anchor_params = _draw_weights(S, seed, dev, cfg.rot)
+    with span("register.segment_init", device=True):
+        init = initial_segments(gen, frames_t[0, 0], K, n_init=10, seed_mode=cfg.seed_mode,
+                                use_normals=use_normals,
+                                mask=masks_t[0, 0] if masks_t is not None else None)
+    with span("register.draw_weights"):
+        model, step_params, anchor_params = _draw_weights(S, seed, dev, cfg.rot)
     return dict(names=names, masks=masks, device=dev, reg_cfg=reg_cfg, model=model,
                 step_params=step_params, anchor_params=anchor_params, init=init,
                 frames=frames_t, frame_masks=masks_t)
@@ -182,34 +185,37 @@ def run_registration(
     """
     from .registration import register_sequences_batched
 
-    inp = registration_inputs(cfg, seed, mlp_icp, use_normals, corr_every, device)
-    dev, names, masks = inp["device"], inp["names"], inp["masks"]
-    S, T, N, _ = inp["frames"].shape
-    if verbose:
-        print(f"[register] {S} sequences x {T} frames x {N} points, "
-              f"K={inp['reg_cfg'].num_seg}, mode={cfg.rot}, device={dev}"
-              + (" (ragged, masked)" if masks is not None else ""))
+    with _telemetry(cfg).stage("register", robot=cfg.robot) as rec, \
+            span("register", device=True) as root:
+        inp = registration_inputs(cfg, seed, mlp_icp, use_normals, corr_every, device)
+        dev, names, masks = inp["device"], inp["names"], inp["masks"]
+        S, T, N, _ = inp["frames"].shape
+        root.note(S=S, T=T, N=N)
+        if verbose:
+            print(f"[register] {S} sequences x {T} frames x {N} points, "
+                  f"K={inp['reg_cfg'].num_seg}, mode={cfg.rot}, device={dev}"
+                  + (" (ragged, masked)" if masks is not None else ""))
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.time()
-    result = register_sequences_batched(inp["model"], inp["reg_cfg"], inp["step_params"],
-                                        inp["anchor_params"], inp["init"], inp["frames"],
-                                        inp["frame_masks"])
-    all_matrices = result.matrices.cpu().numpy()   # waits for the device
-    elapsed = time.time() - t0
-    frames_registered = S * (T - 1)
-    if verbose:
-        print(f"[register] {elapsed:.2f}s for {frames_registered} frame pairs "
-              f"({frames_registered / elapsed:.2f} frames/s)")
-    with _telemetry(cfg).stage("register", robot=cfg.robot, frames=frames_registered,
-                               seconds_compute=round(elapsed, 3)):
-        pass
-
-    all_losses = result.losses.cpu().numpy()
-    all_step_losses = result.step_losses.cpu().numpy()
-    _save_registrations(cfg, names, all_matrices, result.local_points.cpu().numpy(),
-                        result.labels.cpu().numpy(), all_losses, masks)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.time()
+        result = register_sequences_batched(inp["model"], inp["reg_cfg"], inp["step_params"],
+                                            inp["anchor_params"], inp["init"], inp["frames"],
+                                            inp["frame_masks"])
+        with span("register.readback"):
+            all_matrices = result.matrices.cpu().numpy()   # waits for the device
+            elapsed = time.time() - t0
+            all_losses, all_step_losses, local_points, labels = (
+                x.cpu().numpy() for x in (result.losses, result.step_losses,
+                                          result.local_points, result.labels))
+        frames_registered = S * (T - 1)
+        rec.update(frames=frames_registered, seconds_compute=round(elapsed, 3))
+        if verbose:
+            print(f"[register] {elapsed:.2f}s for {frames_registered} frame pairs "
+                  f"({frames_registered / elapsed:.2f} frames/s)")
+        with span("register.write_artifacts"):
+            _save_registrations(cfg, names, all_matrices, local_points, labels, all_losses,
+                                masks)
     return {
         "names": names,
         "device": str(dev),
@@ -497,110 +503,110 @@ def run_build_urdf(
     )
     from .urdf.writer import write_urdf
 
-    dev = resolve_device(device)
-    cms, part_dirs = build_coord_maps(cfg, end_video, cfg.start_steps, cfg.end_steps)
-    sum_map = combined_sum_map(cms, dist_mode, device=dev)
+    with _telemetry(cfg).stage("build_urdf", robot=cfg.robot) as rec, \
+            span("build_urdf", device=True):
+        dev = resolve_device(device)
+        cms, part_dirs = build_coord_maps(cfg, end_video, cfg.start_steps, cfg.end_steps)
+        sum_map = combined_sum_map(cms, dist_mode, device=dev)
 
-    if unknown_dof:
-        search = {"gap": merge_gap_dof_search, "silhouette": silhouette_dof_search,
-                  "auto": auto_dof_search}[dof_method]
-        groups, labels, scores, nls = search(sum_map)
-        dof = len(groups) - 1
-        if verbose:
-            print(f"[urdf] {dof_method} DoF search: links={len(groups)} dof={dof}")
-        score_dir = os.path.join(part_dirs[0], "score")
-        os.makedirs(score_dir, exist_ok=True)
-        with open(os.path.join(score_dir, "silhouette_score.txt"), "w") as f:
-            f.write(f"Silhouette Score: {scores}\n")
-            f.write(f"Number of Links: {nls.tolist()}\n")
-    else:
-        dof = get_robot(cfg.robot).dof
-        groups, labels, _ = coord_clustering(sum_map, dof + 1)
-
-    carry_stack = None
-    if reassign or (unknown_dof and dof_guard):
-        carry_stack = swap_consistency_stack(cms, device=dev)
-    if reassign:
-        groups = refine_groups_by_carry(cms, groups, verbose=verbose, stack=carry_stack)
-        dof = len(groups) - 1
-    if unknown_dof and dof_guard:
-        groups, fired = rigidity_guarded_groups(sum_map, carry_stack, groups, verbose=verbose)
-        if fired:
+        if unknown_dof:
+            search = {"gap": merge_gap_dof_search, "silhouette": silhouette_dof_search,
+                      "auto": auto_dof_search}[dof_method]
+            groups, labels, scores, nls = search(sum_map)
             dof = len(groups) - 1
             if verbose:
-                print(f"[urdf] rigidity guard escalated: links={len(groups)} dof={dof}")
+                print(f"[urdf] {dof_method} DoF search: links={len(groups)} dof={dof}")
+            score_dir = os.path.join(part_dirs[0], "score")
+            os.makedirs(score_dir, exist_ok=True)
+            with open(os.path.join(score_dir, "silhouette_score.txt"), "w") as f:
+                f.write(f"Silhouette Score: {scores}\n")
+                f.write(f"Number of Links: {nls.tolist()}\n")
+        else:
+            dof = get_robot(cfg.robot).dof
+            groups, labels, _ = coord_clustering(sum_map, dof + 1)
 
-    num_steps = cfg.end_steps - cfg.start_steps
-    refine_frames = None
-    if unknown_dof and dof_probe:
-        refine_frames = _load_refine_frames(cfg, end_video)
-        k_before = len(groups)
-        probe_groups, _ = probe_k_selection(
-            sum_map, cms, refine_frames[0], k0=k_before,
-            frame_masks=refine_frames[1], carry_stack=carry_stack,
-            probe_steps=dof_probe_steps, points_per_link=dof_probe_points,
-            share_normalize=ladder_share_norm, verbose=verbose, device=dev,
-        )
-        if len(probe_groups) != k_before:
-            # keep the main-path partition when the probe confirms k: it
-            # already carries the guard's boundary refinement
-            groups = probe_groups
+        carry_stack = None
+        if reassign or (unknown_dof and dof_guard):
+            carry_stack = swap_consistency_stack(cms, device=dev)
+        if reassign:
+            groups = refine_groups_by_carry(cms, groups, verbose=verbose, stack=carry_stack)
             dof = len(groups) - 1
-            if verbose:
-                print(f"[urdf] probe ladder overrode DoF pick: links={len(groups)} dof={dof}")
-    if tree == "motion":
-        links = motion_tree(cms, groups, num_steps)
-        links_mst = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
+        if unknown_dof and dof_guard:
+            groups, fired = rigidity_guarded_groups(sum_map, carry_stack, groups, verbose=verbose)
+            if fired:
+                dof = len(groups) - 1
+                if verbose:
+                    print(f"[urdf] rigidity guard escalated: links={len(groups)} dof={dof}")
 
-        def _edges(ls):
-            return {frozenset((l.id, l.parent_id)) for l in ls if l.parent_id is not None}
+        num_steps = cfg.end_steps - cfg.start_steps
+        refine_frames = None
+        if unknown_dof and dof_probe:
+            refine_frames = _load_refine_frames(cfg, end_video)
+            k_before = len(groups)
+            probe_groups, _ = probe_k_selection(
+                sum_map, cms, refine_frames[0], k0=k_before,
+                frame_masks=refine_frames[1], carry_stack=carry_stack,
+                probe_steps=dof_probe_steps, points_per_link=dof_probe_points,
+                share_normalize=ladder_share_norm, verbose=verbose, device=dev,
+            )
+            if len(probe_groups) != k_before:
+                # keep the main-path partition when the probe confirms k: it
+                # already carries the guard's boundary refinement
+                groups = probe_groups
+                dof = len(groups) - 1
+                if verbose:
+                    print(f"[urdf] probe ladder overrode DoF pick: links={len(groups)} dof={dof}")
+        if tree == "motion":
+            links = motion_tree(cms, groups, num_steps)
+            links_mst = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
 
-        if _edges(links_mst) != _edges(links):
-            # the two topology hypotheses disagree: a composite joint
-            # modelled as one revolute cannot track the clouds, so the
-            # short chain fit's loss picks the true tree
+            def _edges(ls):
+                return {frozenset((l.id, l.parent_id)) for l in ls if l.parent_id is not None}
+
+            if _edges(links_mst) != _edges(links):
+                # the two topology hypotheses disagree: a composite joint
+                # modelled as one revolute cannot track the clouds, so the
+                # short chain fit's loss picks the true tree
+                if refine_frames is None:
+                    refine_frames = _load_refine_frames(cfg, end_video)
+                links = _select_tree_by_chain_fit(
+                    {"motion": links, "proximity-mst": links_mst},
+                    cms, refine_frames[0], refine_frames[1], num_steps, verbose, device=dev,
+                )
+        else:
+            links = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
+        # cms are already sliced to [start_steps:end_steps]; index them 0-based
+        joints = estimate_joints_from_tree(links, cms, 0, num_steps, interval=4)
+
+        if refine == "chain" and joints:
             if refine_frames is None:
                 refine_frames = _load_refine_frames(cfg, end_video)
-            links = _select_tree_by_chain_fit(
-                {"motion": links, "proximity-mst": links_mst},
-                cms, refine_frames[0], refine_frames[1], num_steps, verbose, device=dev,
-            )
-    else:
-        links = kinematics_tree(cms[0], groups, cluster_mst(cms[0]))
-    # cms are already sliced to [start_steps:end_steps]; index them 0-based
-    joints = estimate_joints_from_tree(links, cms, 0, num_steps, interval=4)
+            links, joints, dof = _refine_chain_loop(
+                links, joints, cms, refine_frames, num_steps, dof,
+                refine_steps=refine_steps, chain_balance=chain_balance,
+                canonical_frames=canonical_frames, chain_anchors=chain_anchors,
+                chain_trunc=chain_trunc, freeze_prune=freeze_prune, prune_deg=prune_deg,
+                drift_prune=drift_prune, drift_theta_deg=drift_theta_deg, drift_conc=drift_conc,
+                drift_spread_deg=drift_spread_deg, coart_merge=coart_merge, verbose=verbose,
+                device=dev)
 
-    if refine == "chain" and joints:
-        if refine_frames is None:
-            refine_frames = _load_refine_frames(cfg, end_video)
-        links, joints, dof = _refine_chain_loop(
-            links, joints, cms, refine_frames, num_steps, dof,
-            refine_steps=refine_steps, chain_balance=chain_balance,
-            canonical_frames=canonical_frames, chain_anchors=chain_anchors,
-            chain_trunc=chain_trunc, freeze_prune=freeze_prune, prune_deg=prune_deg,
-            drift_prune=drift_prune, drift_theta_deg=drift_theta_deg, drift_conc=drift_conc,
-            drift_spread_deg=drift_spread_deg, coart_merge=coart_merge, verbose=verbose,
-            device=dev)
+        # link artifacts + meshes from the first sequence only.  Order by link
+        # id: the URDF writer references {id:04}.stl, while the tree list is in
+        # BFS order -- mixing the two scrambles mesh assignment.
+        links_by_id = sorted(links, key=lambda l: l.id)
+        art = consolidate_links(cms[0], [l.cluster_idx for l in links_by_id])
+        art = refine_link_clusters(art, device=dev)
+        seq_name = os.path.basename(os.path.normpath(part_dirs[0]))
+        link_dir = os.path.join(cfg.mesh_dir(), seq_name)
+        save_link_artifacts(link_dir, art)
+        clouds = canonical_link_clouds(art)
+        mesh_paths = generate_link_meshes(clouds, link_dir, cfg.voxel())
 
-    # link artifacts + meshes from the first sequence only.  Order by link
-    # id: the URDF writer references {id:04}.stl, while the tree list is in
-    # BFS order -- mixing the two scrambles mesh assignment.
-    links_by_id = sorted(links, key=lambda l: l.id)
-    art = consolidate_links(cms[0], [l.cluster_idx for l in links_by_id])
-    art = refine_link_clusters(art, device=dev)
-    seq_name = os.path.basename(os.path.normpath(part_dirs[0]))
-    link_dir = os.path.join(cfg.mesh_dir(), seq_name)
-    save_link_artifacts(link_dir, art)
-    clouds = canonical_link_clouds(art)
-    mesh_paths = generate_link_meshes(clouds, link_dir, cfg.voxel())
-
-    urdf_path = write_urdf(links, joints, cms[0], cfg.urdf_path(), mesh_dir=link_dir,
-                           robot_name=f"estimated_{cfg.robot}")
-    if verbose:
-        print(f"[urdf] wrote {urdf_path} ({len(links)} links, {len(joints)} joints)")
-    with _telemetry(cfg).stage("build_urdf", robot=cfg.robot, links=len(links), dof=dof,
-                               seconds_total=round(time.time() - t_start, 3)):
-        pass
+        urdf_path = write_urdf(links, joints, cms[0], cfg.urdf_path(), mesh_dir=link_dir,
+                               robot_name=f"estimated_{cfg.robot}")
+        if verbose:
+            print(f"[urdf] wrote {urdf_path} ({len(links)} links, {len(joints)} joints)")
+        rec.update(links=len(links), dof=dof, seconds_total=round(time.time() - t_start, 3))
     return {
         "urdf_path": urdf_path,
         "num_links": len(links),
@@ -634,93 +640,92 @@ def run_evaluation(
     ``pred_ori=(0, 0, 0)``."""
     from .eval import compare_joints, load_offset, resim_chamfer
 
-    dev = resolve_device(device)
-    robot = get_robot(cfg.robot)
-    offset = load_offset(cfg.raw_dir())
-    if pred_ori is None:
-        pred_ori = robot.ori
-    cmp = compare_joints(
-        pred_urdf_path=cfg.urdf_path(),
-        gt_urdf_path=robot.gt_path(asset_root),
-        dof=robot.dof,
-        offset=offset,
-        sim_ori=robot.sim_ori,
-        pred_ori=pred_ori,
-        joint_map=joint_map,
-        global_scale=robot.global_scale,
-        asset_root=asset_root,
-    )
-    eval_dir = cfg.eval_dir()
-    os.makedirs(eval_dir, exist_ok=True)
-    np.savetxt(os.path.join(eval_dir, "pos_mean_std.txt"),
-               (np.mean(cmp.pos_errors), np.std(cmp.pos_errors)))
-    np.savetxt(os.path.join(eval_dir, "dir_mean_std.txt"),
-               (np.mean(cmp.dir_errors), np.std(cmp.dir_errors)))
-    with open(os.path.join(eval_dir, "coverage.txt"), "w") as f:
-        f.write(f"matched {cmp.matched} / {cmp.total}\n")
-        f.write(f"dir_mean_matched {cmp.dir_mean_matched:.4f}\n")
-        f.write(f"dir_mean_complete {cmp.dir_mean_complete:.4f}\n")
-        f.write(f"pos_mean_complete {cmp.pos_mean_complete:.6f}\n")
-    # per-joint breakdown: which gt joint maps to which predicted joint and
-    # its individual errors
-    with open(os.path.join(eval_dir, "per_joint.txt"), "w") as f:
-        f.write("gt_joint pred_joint dir_err_deg pos_err_m\n")
-        jm = cmp.joint_map if cmp.joint_map is not None else []
-        dc = cmp.dir_errors_complete or []
-        pc = cmp.pos_errors_complete or []
-        for gi, pi in enumerate(jm):
-            de = f"{dc[gi]:.3f}" if gi < len(dc) else "nan"
-            pe = f"{pc[gi]:.5f}" if gi < len(pc) else "nan"
-            f.write(f"{gi} {int(pi)} {de} {pe}\n")
-    if verbose:
-        print(f"[eval] joint pos err {np.mean(cmp.pos_errors):.4f} m, "
-              f"dir err {np.mean(cmp.dir_errors):.2f} deg "
-              f"(matched {cmp.matched}/{cmp.total}, "
-              f"complete {cmp.dir_mean_complete:.2f} deg)")
+    with _telemetry(cfg).stage("evaluate", robot=cfg.robot) as rec, \
+            span("evaluate", device=True):
+        dev = resolve_device(device)
+        robot = get_robot(cfg.robot)
+        offset = load_offset(cfg.raw_dir())
+        if pred_ori is None:
+            pred_ori = robot.ori
+        cmp = compare_joints(
+            pred_urdf_path=cfg.urdf_path(),
+            gt_urdf_path=robot.gt_path(asset_root),
+            dof=robot.dof,
+            offset=offset,
+            sim_ori=robot.sim_ori,
+            pred_ori=pred_ori,
+            joint_map=joint_map,
+            global_scale=robot.global_scale,
+            asset_root=asset_root,
+        )
+        eval_dir = cfg.eval_dir()
+        os.makedirs(eval_dir, exist_ok=True)
+        np.savetxt(os.path.join(eval_dir, "pos_mean_std.txt"),
+                   (np.mean(cmp.pos_errors), np.std(cmp.pos_errors)))
+        np.savetxt(os.path.join(eval_dir, "dir_mean_std.txt"),
+                   (np.mean(cmp.dir_errors), np.std(cmp.dir_errors)))
+        with open(os.path.join(eval_dir, "coverage.txt"), "w") as f:
+            f.write(f"matched {cmp.matched} / {cmp.total}\n")
+            f.write(f"dir_mean_matched {cmp.dir_mean_matched:.4f}\n")
+            f.write(f"dir_mean_complete {cmp.dir_mean_complete:.4f}\n")
+            f.write(f"pos_mean_complete {cmp.pos_mean_complete:.6f}\n")
+        # per-joint breakdown: which gt joint maps to which predicted joint and
+        # its individual errors
+        with open(os.path.join(eval_dir, "per_joint.txt"), "w") as f:
+            f.write("gt_joint pred_joint dir_err_deg pos_err_m\n")
+            jm = cmp.joint_map if cmp.joint_map is not None else []
+            dc = cmp.dir_errors_complete or []
+            pc = cmp.pos_errors_complete or []
+            for gi, pi in enumerate(jm):
+                de = f"{dc[gi]:.3f}" if gi < len(dc) else "nan"
+                pe = f"{pc[gi]:.5f}" if gi < len(pc) else "nan"
+                f.write(f"{gi} {int(pi)} {de} {pe}\n")
+        if verbose:
+            print(f"[eval] joint pos err {np.mean(cmp.pos_errors):.4f} m, "
+                  f"dir err {np.mean(cmp.dir_errors):.2f} deg "
+                  f"(matched {cmp.matched}/{cmp.total}, "
+                  f"complete {cmp.dir_mean_complete:.2f} deg)")
 
-    losses, mean, std = resim_chamfer(
-        pred_urdf_path=cfg.urdf_path(),
-        gt_urdf_path=robot.gt_path(asset_root),
-        dof=robot.dof,
-        offset=offset,
-        joint_map=cmp.joint_map,
-        direction_map=cmp.direction_map,
-        save_path=eval_dir,
-        sim_ori=robot.sim_ori,
-        pred_ori=pred_ori,
-        radius=robot.cam_dist,
-        num_cameras=cfg.num_cameras,
-        global_scale=robot.global_scale,
-        asset_root=asset_root,
-        seed=cfg.seed,
-        num_configs=num_configs,
-        device=dev,
-    )
-    if verbose:
-        print(f"[eval] resim chamfer {mean:.4f} +- {std:.4f}")
-    # metric context: the same protocol's gt-vs-gt score — capture +
-    # sampling + unobservable-surface floor; a resim number is only
-    # interpretable next to its floor
-    gt_path = robot.gt_path(asset_root)
-    rng_floor = np.random.default_rng(cfg.seed)
-    _, floor_mean, _ = resim_chamfer(
-        pred_urdf_path=gt_path, gt_urdf_path=gt_path, dof=robot.dof,
-        offset=np.zeros(robot.dof),
-        joint_map=np.arange(robot.dof), direction_map=[1.0] * robot.dof,
-        sim_ori=robot.sim_ori, pred_ori=robot.sim_ori,
-        radius=robot.cam_dist, num_cameras=cfg.num_cameras,
-        asset_root=asset_root, seed=cfg.seed, num_configs=num_configs,
-        a_list=rng_floor.random((num_configs, robot.dof)) * 2.0 - 1.0,
-        device=dev,
-    )
-    np.savetxt(os.path.join(eval_dir, "floor.txt"), [floor_mean])
-    if verbose:
-        print(f"[eval] resim floor (gt-vs-gt) {floor_mean:.4f}")
-    with _telemetry(cfg).stage("evaluate", robot=cfg.robot,
-                               dir_mean=round(float(np.mean(cmp.dir_errors)), 3)
-                               if cmp.dir_errors else None,
-                               chamfer_mean=round(mean, 4)):
-        pass
+        losses, mean, std = resim_chamfer(
+            pred_urdf_path=cfg.urdf_path(),
+            gt_urdf_path=robot.gt_path(asset_root),
+            dof=robot.dof,
+            offset=offset,
+            joint_map=cmp.joint_map,
+            direction_map=cmp.direction_map,
+            save_path=eval_dir,
+            sim_ori=robot.sim_ori,
+            pred_ori=pred_ori,
+            radius=robot.cam_dist,
+            num_cameras=cfg.num_cameras,
+            global_scale=robot.global_scale,
+            asset_root=asset_root,
+            seed=cfg.seed,
+            num_configs=num_configs,
+            device=dev,
+        )
+        if verbose:
+            print(f"[eval] resim chamfer {mean:.4f} +- {std:.4f}")
+        # metric context: the same protocol's gt-vs-gt score — capture +
+        # sampling + unobservable-surface floor; a resim number is only
+        # interpretable next to its floor
+        gt_path = robot.gt_path(asset_root)
+        rng_floor = np.random.default_rng(cfg.seed)
+        _, floor_mean, _ = resim_chamfer(
+            pred_urdf_path=gt_path, gt_urdf_path=gt_path, dof=robot.dof,
+            offset=np.zeros(robot.dof),
+            joint_map=np.arange(robot.dof), direction_map=[1.0] * robot.dof,
+            sim_ori=robot.sim_ori, pred_ori=robot.sim_ori,
+            radius=robot.cam_dist, num_cameras=cfg.num_cameras,
+            asset_root=asset_root, seed=cfg.seed, num_configs=num_configs,
+            a_list=rng_floor.random((num_configs, robot.dof)) * 2.0 - 1.0,
+            device=dev,
+        )
+        np.savetxt(os.path.join(eval_dir, "floor.txt"), [floor_mean])
+        if verbose:
+            print(f"[eval] resim floor (gt-vs-gt) {floor_mean:.4f}")
+        rec.update(dir_mean=round(float(np.mean(cmp.dir_errors)), 3) if cmp.dir_errors else None,
+                   chamfer_mean=round(mean, 4))
     return {
         "pos_errors": cmp.pos_errors,
         "dir_errors": cmp.dir_errors,

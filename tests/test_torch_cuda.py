@@ -695,6 +695,93 @@ def test_program_that_waits_on_the_host_raises_on_card(cuda):
     assert torch.equal(x * 2, torch.arange(0.0, 16.0, 2.0, device=cuda))   # the card still works
 
 
+@pytest.fixture
+def spans_on():
+    from autourdf_tpu_torch.utils import telemetry
+
+    telemetry.enable()
+    telemetry.collect()
+    yield telemetry
+    telemetry.enable(False)
+    telemetry.collect()
+
+
+def test_device_span_of_a_replay_on_card(cuda, spans_on):
+    """A replay's device interval is > 0 and no longer than its host
+    interval plus the time the device took to drain after it; a span waits
+    for nothing: its end event is still pending behind a sleeping kernel."""
+    import time
+
+    from autourdf_tpu_torch.utils import programs
+
+    a = torch.randn(512, 512).to(cuda)   # the card's generator may be mid-capture after a failed one
+    prog = programs.Program(lambda x: ((x @ x).relu() @ x,), "span-replay")
+    prog(a)
+    torch.cuda.synchronize()
+    spans_on.collect()
+    with spans_on.span("root", device=True):
+        prog(a)
+        t_exit = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter_ns() - t_exit) / 1e6
+    root, replay = spans_on.collect()
+    assert replay["name"] == "program.replay" and replay["parent"] == 0
+    dev_ms = replay["device_end_ms"] - replay["device_start_ms"]
+    host_ms = (replay["end_ns"] - replay["start_ns"]) / 1e6
+    assert 0 < dev_ms <= host_ms + drain_ms
+    assert root["device_start_ms"] == 0
+
+    with spans_on.span("root", device=True):
+        torch.cuda._sleep(200_000_000)
+        with spans_on.span("behind", device=True) as sp:
+            pass
+        pending = not sp.events[1].query()
+    assert pending
+    assert [s["name"] for s in spans_on.collect()] == ["root", "behind"]
+
+
+def test_span_during_a_capture_records_no_event_on_card(cuda, spans_on):
+    from autourdf_tpu_torch.utils import programs
+
+    def fn(x):
+        with spans_on.span("inside", device=True):
+            return (x * 2 + 1,)
+
+    x = torch.arange(8.0, device=cuda)
+    with spans_on.span("root", device=True):
+        prog = programs.Program(fn, "span-in-capture")
+        for i in range(3):
+            (out,) = prog(x + i)
+            assert torch.equal(out, (x + i) * 2 + 1)
+    spans = spans_on.collect()
+    names = [s["name"] for s in spans]
+    # the warm-up runs fn on a side stream (timed), the capture runs it once
+    # (not timed), the replays run no Python
+    assert names.count("inside") == 2 and names.count("program.replay") == 3
+    warm, captured = [s for s in spans if s["name"] == "inside"]
+    assert spans[warm["parent"]]["name"] == "program.warmup" and "device_start_ms" in warm
+    assert spans[captured["parent"]]["name"] == "program.capture"
+    assert "device_start_ms" not in captured
+    assert spans[captured["parent"]]["attrs"]["nodes"] == prog.stats["nodes"]
+
+
+def test_warm_up_seconds_on_card(cuda):
+    """``warm_s`` is the family's first warm-up; a second program of the
+    family (another shape) warms up no more."""
+    from autourdf_tpu_torch.utils import programs
+
+    made = dict(programs.counters)
+    first = programs.Program(lambda x: (x.sin() * 2,), "warm-seconds")
+    first(torch.ones(16, device=cuda))
+    second = programs.Program(lambda x: (x.sin() * 2,), "warm-seconds")
+    second(torch.ones(32, device=cuda))
+    assert first.stats["warm_s"] > 0 and second.stats["warm_s"] == 0
+    assert first.stats["epochs"] is None
+    assert programs.counters["warmups"] - made["warmups"] == 1
+    assert programs.counters["captures"] - made["captures"] == 2
+    assert programs.counters["replays"] - made["replays"] == 2
+
+
 # ---------------------------------------------------------------------------
 # the geometry kernels (csrc/geom.cu) and the programs they make possible
 # ---------------------------------------------------------------------------
