@@ -157,8 +157,12 @@ class PoseRegressor(nn.Module):
             off += n
         return out
 
-    def forward_flat(self, theta: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-        return pose_forward(self.mode, self.unflatten(theta), m)
+    def forward_flat(self, theta: torch.Tensor | dict[str, torch.Tensor],
+                     m: torch.Tensor) -> torch.Tensor:
+        """The MLP on ``m`` with the flat ``(S, P)`` parameters ``theta``, or
+        with its per-parameter tensors (:meth:`unflatten`'s dict)."""
+        params = theta if isinstance(theta, dict) else self.unflatten(theta)
+        return pose_forward(self.mode, params, m)
 
 
 def params_from_jax(tree, mode: str) -> dict[str, torch.Tensor]:

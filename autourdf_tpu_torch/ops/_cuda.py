@@ -36,9 +36,10 @@ build_logs: dict[str, str] = {}
 
 # Kernel launch counts, one per wrapper: each adds one where it launches its
 # kernel and nowhere else, so a run can show the main path went through it
-# (the search kernels of knn.cu, then the geometry kernels of geom.cu).
+# (the search kernels of knn.cu, the geometry kernels of geom.cu, then the
+# epoch's update of optim.cu).
 launch_counts = {"nn_bidir": 0, "nn_min_bidir": 0, "nn": 0, "nn_bidir_acc": 0,
-                 "fps": 0, "icp_kabsch": 0, "pca_normals": 0}
+                 "fps": 0, "icp_kabsch": 0, "pca_normals": 0, "epoch_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -46,7 +47,7 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 _SIGNATURES = {
     "knn": {
         "knn_sweep_shared_bytes": ([_I, _I, _I], _I),
@@ -66,6 +67,10 @@ _SIGNATURES = {
         "geom_icp_kabsch_setup": ([_P, _P, _P], _I),
         "geom_icp_kabsch_launch": ([_P] * 14 + [_I, _I, _I, _P], _I),
         "geom_pca_normals_launch": ([_P, _P, _I, _I, _P, _P], _I),
+    },
+    "optim": {
+        "optim_epoch_update_launch": ([_P, _P, _I, _P, _P, _I, _I, _I] + [_F] * 7
+                                      + [_I, _I, _P], _I),
     },
 }
 

@@ -24,15 +24,24 @@ a start program (``train_init``) and chunk programs of
 shape as CUDA graphs and replayed (``utils/programs.py``; on the CPU the same
 programs run without capture).  ``eager=True`` runs the plain loop, the
 reference the programs are held against.
+
+On the card everything an epoch does after its loss and gradient (Adam, the
+plateau step, best tracking, the early-stop freeze) is one launch of
+``epoch_update_kernel`` (``csrc/optim.cu``), fed one gradient a parameter
+tensor (:func:`epoch_update`); on the CPU it is the plain chain of PyTorch
+operations (:func:`_epoch_update_plain`), the reference the kernel is held to
+bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
+from ..ops import _cuda
 from ..ops.chamfer import (_ChamferFn, chamfer_correspondences, chamfer_distance,
                            chamfer_from_indices)
 from ..utils import programs
@@ -71,8 +80,13 @@ def adam_init(theta: torch.Tensor) -> AdamState:
                      torch.zeros(theta.shape[0], dtype=torch.int32, device=theta.device))
 
 
+# Adam's torch defaults and the plateau's relative threshold
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+PLATEAU_THRESHOLD = 1e-4
+
+
 def adam_update(grads: torch.Tensor, state: AdamState, theta: torch.Tensor, lr: torch.Tensor,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                b1: float = ADAM_B1, b2: float = ADAM_B2, eps: float = ADAM_EPS):
     """One Adam step per sequence; ``lr (S,)``.  Same formula and order of
     operations as the JAX ``adam_update``."""
     step = state.step + 1
@@ -100,7 +114,7 @@ def plateau_init(lr: float, num_seqs: int, device) -> PlateauState:
 
 
 def plateau_update(state: PlateauState, loss: torch.Tensor, factor: float = 0.7,
-                   patience: int = 5, threshold: float = 1e-4) -> PlateauState:
+                   patience: int = 5, threshold: float = PLATEAU_THRESHOLD) -> PlateauState:
     """torch ReduceLROnPlateau (mode=min, rel threshold) semantics, per sequence."""
     improved = loss < state.best * (1.0 - threshold)
     best = torch.where(improved, loss, state.best)
@@ -141,10 +155,11 @@ def train_init(theta: torch.Tensor, matrices: torch.Tensor, learning_rate: float
     )
 
 
-def predict_points(model, theta: torch.Tensor, matrices: torch.Tensor, points: torch.Tensor,
-                   labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pose MLP's matrices ``(S, K, 4, 4)`` from the flat ``theta`` and
-    the incoming ``matrices``, and the world points ``(S, N, 3)`` they pose."""
+def predict_points(model, theta: torch.Tensor | dict[str, torch.Tensor], matrices: torch.Tensor,
+                   points: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pose MLP's matrices ``(S, K, 4, 4)`` from the flat ``theta`` (or
+    its per-parameter tensors, ``model.unflatten``'s dict) and the incoming
+    ``matrices``, and the world points ``(S, N, 3)`` they pose."""
     m2 = model.forward_flat(theta, matrices)
     return m2, transform_by_labels(m2, points, labels)
 
@@ -153,14 +168,77 @@ def _keep_old(frozen: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> tor
     return torch.where(frozen.view((-1,) + (1,) * (new.dim() - 1)), old, new)
 
 
-def _epoch_step(c: TrainCarry, loss_and_m, stop_patience, scheduler_patience,
+def _epoch_step(c: TrainCarry, loss_and_m, model, stop_patience, scheduler_patience,
                 scheduler_factor) -> tuple[TrainCarry, torch.Tensor]:
-    theta = c.theta.detach().requires_grad_(True)
-    with torch.enable_grad():
-        loss, m2 = loss_and_m(theta)
-        (grads,) = torch.autograd.grad(loss.sum(), theta)
-    loss, m2 = loss.detach(), m2.detach()
+    """One epoch: the loss of ``c.theta`` and its gradient, one piece a
+    parameter on the card (:func:`loss_and_grads`), then
+    :func:`epoch_update`."""
+    loss, m2, grads = loss_and_grads(c.theta, loss_and_m, model, c.theta.is_cuda)
+    return epoch_update(c, grads, loss, m2, stop_patience, scheduler_patience, scheduler_factor)
 
+
+def loss_and_grads(theta: torch.Tensor, loss_and_m, model, per_parameter: bool):
+    """``loss_and_m(params) -> (loss (S,), m2)`` and the gradient of the
+    loss's sum, detached: ``(loss, m2, grads)``.  ``params`` is the flat
+    ``theta``, and ``grads`` its one gradient; or, ``per_parameter``,
+    ``model.unflatten``'s dict of views of ``theta``, each a leaf, and
+    ``grads`` one a parameter as its GEMM or bias sum wrote it, where the
+    gradient against the flat tensor zero-fills an ``(S, P)`` tensor a
+    parameter and adds them up.  The values are the same."""
+    if per_parameter:
+        params = model.unflatten(theta.detach())
+        wrt = [p.requires_grad_(True) for p in params.values()]
+    else:
+        params = theta.detach().requires_grad_(True)
+        wrt = [params]
+    with torch.enable_grad():
+        loss, m2 = loss_and_m(params)
+        grads = torch.autograd.grad(loss.sum(), wrt)
+    return loss.detach(), m2.detach(), grads
+
+
+def epoch_update(c: TrainCarry, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                 m2: torch.Tensor, stop_patience: int, scheduler_patience: int,
+                 scheduler_factor: float) -> tuple[TrainCarry, torch.Tensor]:
+    """An epoch's step after its ``loss (S,)``, poses ``m2 (S, K, 4, 4)``
+    and gradient: Adam, the plateau step, best tracking and the early-stop
+    freeze.  ``grads`` are the gradient's pieces in the order of theta's
+    columns (:func:`update_segments`): the flat ``(S, P)`` gradient, or one
+    tensor a parameter.  Returns the new carry and the loss, ``inf`` where
+    the sequence was already frozen.  One launch of ``epoch_update_kernel``
+    on CUDA tensors, the plain chain on CPU tensors."""
+    if c.theta.is_cuda:
+        return _epoch_update_cuda(c, grads, loss, m2, stop_patience, scheduler_patience,
+                                  scheduler_factor)
+    table = update_segments(grads, *c.theta.shape)
+    flat = table[0][0] if len(table) == 1 else torch.cat([g for g, _ in table], dim=1)
+    return _epoch_update_plain(c, flat, loss, m2, stop_patience, scheduler_patience,
+                               scheduler_factor)
+
+
+def update_segments(grads: Sequence[torch.Tensor], S: int, P: int) -> list[tuple[torch.Tensor,
+                                                                                  int]]:
+    """The segment table of :func:`epoch_update`: each gradient piece as an
+    ``(S, n)`` tensor with the first of the columns ``[offset, offset + n)``
+    of theta's rows that it covers; raises unless the pieces tile
+    ``[0, P)``."""
+    table, off = [], 0
+    for g in grads:
+        if g.dim() < 2 or g.shape[0] != S:
+            raise ValueError(f"a gradient piece of shape {tuple(g.shape)} for {S} sequences")
+        g = g.reshape(S, -1)
+        table.append((g, off))
+        off += g.shape[1]
+    if off != P:
+        raise ValueError(f"the gradient pieces cover {off} columns of theta's {P}")
+    return table
+
+
+def _epoch_update_plain(c: TrainCarry, grads: torch.Tensor, loss: torch.Tensor,
+                        m2: torch.Tensor, stop_patience, scheduler_patience,
+                        scheduler_factor) -> tuple[TrainCarry, torch.Tensor]:
+    """Plain version of ``epoch_update_kernel``, with the flat gradient
+    ``grads (S, P)``."""
     improved = loss < c.best_loss
     best_loss = torch.where(improved, loss, c.best_loss)
     best_m = _keep_old(~improved, m2, c.best_m)
@@ -186,6 +264,51 @@ def _epoch_step(c: TrainCarry, loss_and_m, stop_patience, scheduler_patience,
         stopped=frozen | stop_now,
     )
     return out, torch.where(frozen, float("inf"), loss)
+
+
+# the segments a launch of epoch_update_kernel takes (csrc/optim.cu)
+UPDATE_MAX_SEGMENTS = 16
+
+
+def _epoch_update_cuda(c: TrainCarry, grads: Sequence[torch.Tensor], loss: torch.Tensor,
+                       m2: torch.Tensor, stop_patience, scheduler_patience,
+                       scheduler_factor) -> tuple[TrainCarry, torch.Tensor]:
+    """Stands for the XLA-fused ``adam_update`` / ``_epoch_step`` of
+    autourdf_tpu/registration/optimizer.py (no Pallas kernel): one launch of
+    ``epoch_update_kernel`` (csrc/optim.cu) reads each gradient piece where
+    autograd left it and writes a fresh carry."""
+    S, P = c.theta.shape
+    table = update_segments(grads, S, P)
+    if len(table) > UPDATE_MAX_SEGMENTS:
+        raise ValueError(f"epoch_update_kernel takes at most {UPDATE_MAX_SEGMENTS} gradient "
+                         f"pieces, got {len(table)}")
+    ins = [c.theta, c.opt.mu, c.opt.nu, c.opt.step, c.sched.best, c.sched.lr, c.sched.num_bad,
+           c.best_loss, c.best_m, m2, loss, c.bad_count, c.stopped]
+    kinds = [torch.float32] * 3 + [torch.int32] + [torch.float32] * 2 + [torch.int32] \
+        + [torch.float32] * 4 + [torch.int32, torch.bool]
+    shapes = [(S, P)] * 3 + [(S,)] * 5 + [c.best_m.shape, c.best_m.shape, (S,), (S,), (S,)]
+    for t, kind, shape in zip(ins + [g for g, _ in table], kinds + [torch.float32] * len(table),
+                              shapes + [(S, g.shape[1]) for g, _ in table]):
+        if t.dtype != kind or tuple(t.shape) != tuple(shape) or t.device != c.theta.device:
+            raise ValueError(f"epoch_update_kernel: a {t.dtype} {tuple(t.shape)} tensor on "
+                             f"{t.device} where it takes {kind} {tuple(shape)} on "
+                             f"{c.theta.device}")
+    ins = [t.contiguous() for t in ins]
+    pieces = [g.contiguous() for g, _ in table]
+    outs = [torch.empty_like(t) for t in ins[:9] + ins[11:] + ins[10:11]]
+    lib = _cuda.library("optim")
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    offsets = (ctypes.c_int * (len(table) + 1))(*[o for _, o in table], P)
+    err = _cuda.launch(
+        lib.optim_epoch_update_launch, c.theta, ptrs(pieces), offsets, len(table), ptrs(ins),
+        ptrs(outs), S, P, c.best_m[0].numel(), ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2,
+        ADAM_EPS, 1.0 - PLATEAU_THRESHOLD, scheduler_factor, stop_patience, scheduler_patience,
+        _cuda.stream(c.theta))
+    _cuda.check(err, "epoch_update_kernel launch")
+    _cuda.launch_counts["epoch_update"] += 1
+    theta, mu, nu, step, best, lr, num_bad, best_loss, best_m, bad_count, stopped, masked = outs
+    return TrainCarry(theta, AdamState(mu, nu, step), PlateauState(best, num_bad, lr), best_loss,
+                      best_m, bad_count, stopped), masked
 
 
 def train_epochs(
@@ -239,7 +362,7 @@ def train_epochs(
             return chamfer_fn(pred, target, points_mask, target_mask), m2
 
         for _ in range(num_epochs):
-            carry, loss = _epoch_step(carry, loss_and_m, *steps)
+            carry, loss = _epoch_step(carry, loss_and_m, model, *steps)
             losses.append(loss)
         return carry, torch.stack(losses, dim=1)
 
@@ -259,7 +382,7 @@ def train_epochs(
                                         norm=1), m2
 
         for _ in range(corr_every):
-            carry, loss = _epoch_step(carry, loss_and_m, *steps)
+            carry, loss = _epoch_step(carry, loss_and_m, model, *steps)
             losses.append(loss)
     return carry, torch.stack(losses, dim=1)
 
@@ -292,7 +415,8 @@ def epoch_from_search(
         m2, pred = predict_points(model, theta, matrices, points, labels)
         return _ChamferFn.apply(pred, target, xw, yw, 1, lambda *_: found), m2
 
-    return _epoch_step(carry, loss_and_m, stop_patience, scheduler_patience, scheduler_factor)
+    return _epoch_step(carry, loss_and_m, model, stop_patience, scheduler_patience,
+                       scheduler_factor)
 
 
 def train_finalize(carry: TrainCarry, losses: torch.Tensor) -> TrainResult:

@@ -7,7 +7,8 @@ Phases, each of which fails the run on error:
 
 1. print the device and ``nvidia-smi``'s name and power limit;
 2. build the CUDA kernels from ``autourdf_tpu_torch/csrc`` (one nvcc a
-   source, ``knn.cu`` and ``geom.cu`` started together; sm_90a); print
+   source, ``knn.cu``, ``geom.cu`` and ``optim.cu`` started together;
+   sm_90a); print
    ptxas' registers (a spill fails the run) and the SASS instruction counts
    of the four search kernels' inner loops;
 3. hold every kernel against its plain PyTorch version on the card (exact
@@ -53,12 +54,18 @@ Phases, each of which fails the run on error:
    frame and of a 20,000-point cloud: |dot| > 1 - 1e-4 where the two smallest eigenvalues
    are 10% apart, the same sign where |n_z| > 1e-3, unit norm to 1e-6, n_z
    >= 0), each timed beside its bound and its plain version (no one PyTorch
-   call computes any of the three).  After [3] no path may call
+   call computes any of the three); then ``epoch_update_kernel``
+   (``csrc/optim.cu``), the epoch's Adam, plateau step, best tracking and
+   freeze in one launch, against the plain chain (every field of the carry
+   and the masked loss bit for bit, three epochs each at the main path's
+   shape and at three small odd ones), timed beside its bound and the plain
+   chain with the flat gradient's assembly.  After [3] no path may call
    ``torch.linalg.svd``, ``det`` or ``eigh`` on a CUDA tensor;
 4. the main path: register ``data_real/raw/wx200_real_5`` (5 sequences x 10
    ragged frames, K=20, hidden 512, mode q, 300 epochs) through
    ``workflow.run_registration`` into a temporary data root, check the
-   artifacts, the losses and the kernels' launch counts;
+   artifacts, the losses and the kernels' launch counts (the epoch's
+   update one an epoch);
 5. (printed last) the kernel JSON line, then the result line;
 6. the ``urdf`` stage on the artifacts of phase 4: ``workflow.run_build_urdf``
    with ``refine="none", tree="mst"``, once with the registry's DoF and once
@@ -252,8 +259,14 @@ ICP_STEP_BYTES_PER_POINT, ICP_STEP_OPS_PER_POINT = 64, 64
 PCA_K = 30
 
 
+# [3]: the epoch's update at the main path's shape: 5 sequences, mode q,
+# hidden 512 (P = 425,991), K = 20; bytes a parameter: its gradient, theta,
+# mu and nu read, theta, mu and nu written
+UPDATE_S, UPDATE_K, UPDATE_HIDDEN = 5, 20, 512
+UPDATE_BYTES_PER_PARAM = 28
+
 # the kernel sources of autourdf_tpu_torch/csrc that phase 2 builds
-CUDA_SOURCES = ("knn", "geom")
+CUDA_SOURCES = ("knn", "geom", "optim")
 
 # the kernels whose inner loops phase 2 counts (mangled-name fragments): the
 # L1 indexed sweeps, the one-directional search at squared L2 and the
@@ -1310,6 +1323,113 @@ def check_geom_kernels(dev, frame: np.ndarray) -> dict:
     return timing
 
 
+def _update_case(dev, mode: str, hidden: int, S: int, K: int, seed: int = 0):
+    """A carry, per-parameter gradients, a loss and poses for the epoch's
+    update: random moments and steps, sequences frozen, improving, cut by
+    the plateau and stopping."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a)).to(dev, dtype)
+    model = PoseRegressor(mode, hidden, num_seqs=S, generator=torch.Generator().manual_seed(seed),
+                          device=dev)
+    theta = model.flat_params()
+    P = theta.shape[1]
+    best = rng.uniform(0.01, 0.02, S)
+    carry = opt.TrainCarry(
+        theta=theta,
+        opt=opt.AdamState(t(1e-3 * rng.normal(size=(S, P))), t(1e-6 * rng.random((S, P))),
+                          t(rng.integers(0, 300, S), torch.int32)),
+        sched=opt.PlateauState(t(best * rng.uniform(0.99, 1.0, S)),
+                               t(rng.integers(0, 6, S), torch.int32),
+                               t(2e-4 * 0.7 ** rng.integers(0, 3, S))),
+        best_loss=t(best), best_m=t(rng.normal(size=(S, K, 4, 4))),
+        bad_count=t(rng.integers(195, 201, S), torch.int32), stopped=t(rng.random(S) < 0.2,
+                                                                        torch.bool))
+    grads = [t(1e-2 * rng.normal(size=p.shape)) for p in model.unflatten(theta).values()]
+    loss = t(best * rng.uniform(0.98, 1.02, S))
+    return carry, grads, loss, t(rng.normal(size=(S, K, 4, 4)))
+
+
+def _assembled(table, S: int, P: int) -> torch.Tensor:
+    """The flat gradient as autograd assembles it against the flat theta:
+    a zero-filled (S, P) tensor a piece with the piece copied in (its view's
+    SliceBackward), added up."""
+    total = None
+    for g, off in table:
+        z = torch.zeros(S, P, device=g.device)
+        z[:, off:off + g.shape[1]].copy_(g)
+        total = z if total is None else total + z
+    return total
+
+
+def check_epoch_update(dev) -> dict:
+    """Phase 3 for csrc/optim.cu: ``epoch_update_kernel`` against the plain
+    chain on the card, every field of the carry and the masked loss bit for
+    bit, at the main path's shape and at small odd ones, over three epochs
+    each; then its time at the main path's shape beside its bound and the
+    plain chain's, the flat gradient's assembly included."""
+    from autourdf_tpu_torch.ops import _cuda
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    steps = (200, 5, 0.7)
+    for mode, hidden, S, K in (("q", UPDATE_HIDDEN, UPDATE_S, UPDATE_K), ("q", 20, 5, 4),
+                               ("dq", 21, 3, 7), ("6d", 64, 7, 5)):
+        carry, grads, loss, m2 = _update_case(dev, mode, hidden, S, K)
+        P = carry.theta.shape[1]
+        for epoch in range(3):
+            before = _cuda.launch_counts["epoch_update"]
+            got = opt.epoch_update(carry, grads, loss, m2, *steps)
+            launched = _cuda.launch_counts["epoch_update"] - before
+            flat = torch.cat([g.reshape(S, -1) for g in grads], dim=1)
+            ref = opt._epoch_update_plain(carry, flat, loss, m2, *steps)
+            torch.cuda.synchronize(dev)
+            leaves = lambda r: [r[0].theta, *r[0].opt, *r[0].sched, *r[0][3:], r[1]]
+            same = [torch.equal(a, b) for a, b in zip(leaves(got), leaves(ref))]
+            print(f"  epoch_update {mode} hidden {hidden}: S={S}, P={P}, K={K}, epoch {epoch}: "
+                  f"{sum(same)} of {len(same)} fields bit-equal, {launched} launch; "
+                  f"frozen {got[0].stopped.tolist()}")
+            if launched != 1 or not all(same):
+                _fail(f"epoch_update_kernel disagrees with the plain chain ({mode}, {hidden}, "
+                      f"epoch {epoch}): fields {same}")
+            carry = got[0]
+            loss = loss * torch.linspace(0.97, 1.03, S, device=dev)
+
+    carry, grads, loss, m2 = _update_case(dev, "q", UPDATE_HIDDEN, UPDATE_S, UPDATE_K)
+    S, P = carry.theta.shape
+    table = opt.update_segments(grads, S, P)
+
+    def kernel():
+        return opt.epoch_update(carry, grads, loss, m2, *steps)
+
+    def plain():
+        return opt._epoch_update_plain(carry, _assembled(table, S, P), loss, m2, *steps)
+
+    def launches(fn) -> int:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    nbytes = S * P * UPDATE_BYTES_PER_PARAM
+    t = dict(ms=_time_ms(kernel), device_ms=_device_ms(kernel), plain_ms=_time_ms(plain),
+             plain_device_ms=_device_ms(plain), library_ms=None,
+             bound=(1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"),
+             kernels_a_call=launches(kernel), plain_kernels_a_call=launches(plain),
+             shape=f"S={S} P={P} K={UPDATE_K}, {len(table)} segments", max_abs_err=0.0)
+    print(f"  time epoch_update {t['shape']}: wrapper {t['ms']:.4f} ms (device "
+          f"{t['device_ms']:.4f} ms, {t['kernels_a_call']} kernel a call), plain chain with the "
+          f"flat gradient's assembly {t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f} "
+          f"ms, {t['plain_kernels_a_call']} kernels), bound {t['bound'][0]:.6f} ms (bytes: "
+          f"{nbytes / 1e6:.1f} MB)")
+    return {"epoch_update": t}
+
+
 # True while a comparison with a plain version may call PyTorch's solvers on
 # the card (see _solvers_allowed)
 _SOLVERS_OPEN = [False]
@@ -1411,6 +1531,9 @@ def run_main_path(dev, gpu_line: str, root: str) -> dict:
         _fail(f"nn_bidir launched {counts['nn_bidir']} times, expected {PAIRS * 2 * EPOCHS}")
     if counts["nn_min_bidir"] < 1:
         _fail("nn_min_bidir was not launched on the main path")
+    if counts["epoch_update"] != PAIRS * 2 * EPOCHS:
+        _fail(f"epoch_update launched {counts['epoch_update']} times, expected "
+              f"{PAIRS * 2 * EPOCHS} (one an epoch)")
     return {"counts": counts, "n": N, "stats": stats, "cfg": cfg}
 
 
@@ -3302,6 +3425,7 @@ def main() -> int:
     timing = check_kernels(dev, frames.shape[2])
     fullest = np.unravel_index(np.argmax(masks.sum(-1)), masks.shape[:2])
     timing.update(check_geom_kernels(dev, frames[fullest][masks[fullest]]))
+    timing.update(check_epoch_update(dev))
     # from here on no path may reach PyTorch's solvers on the card: the
     # geometry kernels stand for them
     solvers = _forbid_cuda_solvers()
@@ -3366,8 +3490,11 @@ def main() -> int:
                "nn_bidir_acc": "autourdf_tpu/ops/knn.py:233",
                "fps": "autourdf_tpu/ops/fps.py:17",
                "icp_kabsch": "autourdf_tpu/ops/icp.py:50 (_kabsch) + :102-121 (step)",
-               "pca_normals": "autourdf_tpu/ops/plane.py:79-88 (estimate_normals)"}
+               "pca_normals": "autourdf_tpu/ops/plane.py:79-88 (estimate_normals)",
+               "epoch_update": "autourdf_tpu/registration/optimizer.py adam_update, "
+                               "plateau_update, _epoch_step (XLA-fused; no Pallas kernel)"}
     files = {k: "autourdf_tpu_torch/csrc/geom.cu" if k in ("fps", "icp_kabsch", "pca_normals")
+             else "autourdf_tpu_torch/csrc/optim.cu" if k == "epoch_update"
              else "autourdf_tpu_torch/csrc/knn.cu" for k in sources}
     kernels = []
     chain_shape = timing.pop("chain")
@@ -3387,7 +3514,8 @@ def main() -> int:
             kernels[-1]["at_chain_shape"] = chain_shape[kname]
         if kname in resim_shape:
             kernels[-1]["at_resim_shape"] = resim_shape[kname]
-        for extra in ("skeleton_ms", "barrier_floor_ms", "at_eval_shape", "at_shapes"):
+        for extra in ("skeleton_ms", "barrier_floor_ms", "at_eval_shape", "at_shapes",
+                      "plain_device_ms", "kernels_a_call", "plain_kernels_a_call"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         if kernels[-1]["launches"] < 1:

@@ -494,6 +494,151 @@ def test_capture_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the epoch's update (csrc/optim.cu) against the plain chain
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    return type(tree)(_to(v, dev) for v in tree)
+
+
+def _update_fields(out):
+    carry, masked = out
+    return [carry.theta, *carry.opt, *carry.sched, *carry[3:], masked]
+
+
+@pytest.mark.parametrize("mode,hidden,K", [("q", 512, 20), ("q", 20, 4), ("dq", 21, 7),
+                                           ("6d", 64, 5)])
+def test_epoch_update_kernel_matches_plain_on_card(cuda, mode, hidden, K):
+    """Every field of the carry and the masked loss bit for bit, over three
+    epochs of the five bookkeeping cases (improved, plateau cut, stop,
+    frozen, below the threshold), at the main path's (5, 425,991) and at
+    small odd widths; one launch an update."""
+    from test_torch_epoch_update import FACTOR, PATIENCE, STOP_PATIENCE, bookkeeping_cases
+
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    model = PoseRegressor(mode, hidden, num_seqs=5, generator=torch.Generator().manual_seed(2))
+    carry, grads, loss, m2 = _to(bookkeeping_cases(model, K=K), cuda)
+    assert carry.theta.shape[1] % 2 == 1
+    steps = (STOP_PATIENCE, PATIENCE, FACTOR)
+    for epoch in range(3):
+        before = _cuda.launch_counts["epoch_update"]
+        got = opt.epoch_update(carry, grads, loss, m2, *steps)
+        assert _cuda.launch_counts["epoch_update"] == before + 1
+        flat = torch.cat([g.reshape(5, -1) for g in grads], dim=1)
+        ref = opt._epoch_update_plain(carry, flat, loss, m2, *steps)
+        for i, (a, b) in enumerate(zip(_update_fields(got), _update_fields(ref))):
+            assert a.dtype == b.dtype and torch.equal(a, b), (epoch, i)
+        # the flat gradient as one piece takes the same path
+        assert all(torch.equal(a, b) for a, b in zip(
+            _update_fields(opt.epoch_update(carry, [flat], loss, m2, *steps)),
+            _update_fields(got)))
+        carry, loss = got[0], loss * torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0], device=cuda)
+
+
+def test_epoch_update_bias_corrections_at_every_step_on_card(cuda):
+    """The kernel's 1 - powf(b, t) against torch.pow's at 4,000 steps, each
+    a sequence: theta, mu and nu bit for bit."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    S, K = 4000, 2
+    rng = np.random.default_rng(5)
+    model = PoseRegressor("q", 4, num_seqs=S, generator=torch.Generator().manual_seed(3),
+                          device=cuda)
+    theta = model.flat_params()
+    carry = opt.train_init(theta, torch.eye(4, device=cuda).repeat(S, K, 1, 1), 2e-4)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    carry = carry._replace(opt=opt.AdamState(1e-3 * f(*theta.shape), 1e-6 * f(*theta.shape).abs(),
+                                             torch.arange(S, device=cuda, dtype=torch.int32) * 37))
+    grads = [1e-2 * f(*p.shape) for p in model.unflatten(theta).values()]
+    loss, m2 = f(S).abs(), f(S, K, 4, 4)
+    got = opt.epoch_update(carry, grads, loss, m2, 200, 5, 0.7)
+    ref = opt._epoch_update_plain(carry, torch.cat([g.reshape(S, -1) for g in grads], 1), loss,
+                                  m2, 200, 5, 0.7)
+    for a, b in zip(_update_fields(got), _update_fields(ref)):
+        assert torch.equal(a, b)
+
+
+def _training_case(dev):
+    """5 sequences at the main path's widths (K=20, hidden 512, P =
+    425,991) against random targets of 1,500 points: with an early stop
+    after 6 epochs without a new best, sequences freeze along the way."""
+    from autourdf_tpu_torch.models.regmlp import PoseRegressor
+
+    S, K, N = 5, 20, 1500
+    rng = np.random.default_rng(7)
+    model = PoseRegressor("q", 512, num_seqs=S, generator=torch.Generator().manual_seed(4),
+                          device=dev)
+    mats = torch.eye(4, device=dev).repeat(S, K, 1, 1)
+    mats[..., :3, 3] = torch.from_numpy(rng.uniform(-0.2, 0.2, (S, K, 3))).float().to(dev)
+    pts = torch.from_numpy(rng.normal(scale=0.03, size=(S, N, 3))).float().to(dev)
+    labels = torch.from_numpy(rng.integers(0, K, (S, N))).to(dev)
+    target = torch.from_numpy(rng.uniform(-0.2, 0.2, (S, N, 3))).float().to(dev)
+    return model, (model.flat_params(), mats, target, pts, labels)
+
+
+def _plain_chain_on_cpu_only(monkeypatch):
+    """Fail if a CUDA tensor reaches the plain chain or ``adam_update``."""
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    for name in ("_epoch_update_plain", "adam_update"):
+        inner = getattr(opt, name)
+
+        def cpu_only(*a, inner=inner, name=name, **k):
+            assert not any(isinstance(t, torch.Tensor) and t.is_cuda for t in a), name
+            return inner(*a, **k)
+
+        monkeypatch.setattr(opt, name, cpu_only)
+
+
+def test_graphed_training_with_epoch_update_equals_eager_on_card(cuda, monkeypatch):
+    """300 epochs in chunk programs of 100 (captured, then replayed) against
+    the eager loop: every output bit for bit, sequences frozen along the
+    way, one update launch an epoch on every path, and no CUDA tensor
+    reaches the plain chain or ``adam_update``."""
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    _plain_chain_on_cpu_only(monkeypatch)
+    model, args = _training_case(cuda)
+    res, launched = {}, {}
+    for name in ("eager", "programs", "replayed"):
+        before = _cuda.launch_counts["epoch_update"]
+        res[name] = opt.train_pose_mlp(model, *args, epochs=300, stop_patience=6,
+                                       dispatch_epochs=100, eager=name == "eager")
+        torch.cuda.synchronize(cuda)
+        launched[name] = _cuda.launch_counts["epoch_update"] - before
+    for name in ("programs", "replayed"):
+        for f in res[name]._fields:
+            assert torch.equal(getattr(res[name], f), getattr(res["eager"], f)), (name, f)
+    assert launched == {"eager": 300, "programs": 300, "replayed": 300}
+    assert torch.isinf(res["eager"].loss_history[:, -1]).any()
+
+
+def test_correspondence_rounds_take_the_epoch_update_on_card(cuda, monkeypatch):
+    """The rounds family (``corr_every`` 5, ``train_epochs_rounds``) takes
+    the kernel once an epoch, eager and as programs, and never the plain
+    chain.  Its runs are not compared bit for bit: the gathered Chamfer's
+    backward (``torch.gather``) adds with float atomics on the card."""
+    from autourdf_tpu_torch.registration import optimizer as opt
+
+    _plain_chain_on_cpu_only(monkeypatch)
+    model, args = _training_case(cuda)
+    for eager in (True, False):
+        before = _cuda.launch_counts["epoch_update"]
+        res = opt.train_pose_mlp(model, *args, epochs=300, stop_patience=6, corr_every=5,
+                                 dispatch_epochs=100, eager=eager)
+        torch.cuda.synchronize(cuda)
+        assert _cuda.launch_counts["epoch_update"] - before == 300
+        assert torch.isfinite(res.best_loss).all()
+
+
+# ---------------------------------------------------------------------------
 # device programs (utils/programs.py): captured graphs against the eager loops
 # ---------------------------------------------------------------------------
 

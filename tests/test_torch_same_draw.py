@@ -364,7 +364,7 @@ def test_each_epoch_operation_matches_along_the_jax_trajectory(hinge_default_dep
                                    T_(carry.sched.lr)),
                 T_(carry.best_loss), T_(carry.best_m), T_(carry.bad_count), T_(carry.stopped))
             out, _ = t_opt._epoch_step(ct, lambda th: (T_(loss_j) + 0 * th.sum(), T_(m2_j)),
-                                       STOP_PATIENCE, 5, 0.7)
+                                       model, STOP_PATIENCE, 5, 0.7)
             for a, b in ((out.sched.lr, nxt.sched.lr), (out.sched.num_bad, nxt.sched.num_bad),
                          (out.sched.best, nxt.sched.best), (out.best_loss, nxt.best_loss),
                          (out.best_m, nxt.best_m), (out.bad_count, nxt.bad_count),
