@@ -14,7 +14,9 @@ benchmark's own runs never run this.
   card that is PyTorch's own switch, which the port turns off when it is
   imported; on the CPU, which has no TF32, every matrix product's operands
   are rounded to TF32's 10-bit mantissa.
-- ``state_unchanged``: the optimizer's step returns its parameters unchanged.
+- ``state_unchanged``: the epoch's update (``optimizer.epoch_update``: the
+  kernel on the card, the plain chain on the CPU) hands back the carry's
+  parameters unchanged.
 - ``half_batch``: each loss is taken over the first half of the posed points.
 - ``answer_altered``: a result is changed where it is produced (a fit's
   best pose moved by a millimetre).
@@ -81,13 +83,13 @@ def lower_precision(device: str):
 def state_unchanged(device: str):
     from autourdf_tpu_torch.registration import optimizer
 
-    adam = optimizer.adam_update
+    update = optimizer.epoch_update
 
-    def frozen(grads, state, theta, lr, *a, **k):
-        _, st = adam(grads, state, theta, lr, *a, **k)
-        return theta.clone(), st
+    def frozen(c, *a, **k):
+        out, loss = update(c, *a, **k)
+        return out._replace(theta=c.theta.clone()), loss
 
-    with _patched([(optimizer, "adam_update", frozen)]):
+    with _patched([(optimizer, "epoch_update", frozen)]):
         yield
 
 

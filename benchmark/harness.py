@@ -3,15 +3,24 @@
 A cell is found by name from files alone: its entry in ``BENCHMARK.json``,
 the configuration file that entry names, the traffic mix
 ``benchmark/traffic/<traffic>.json``, the cell's own file
-``benchmark/cells/<cell>.json`` (its check's limits and its traced slice), the
-stage module ``benchmark/stages/<stage>.py`` that the traffic names, and one
-reader ``benchmark/metrics/<metric>.py`` a per-layer metric.  Adding a cell
-of an existing stage adds data files only.
+``benchmark/cells/<cell>.json`` (its check's limits, its traced slice and,
+under ``tiny``, the sizes its CPU tests run it at), the stage module
+``benchmark/stages/<stage>.py`` that the traffic names, and one reader
+``benchmark/metrics/<metric>.py`` a per-layer metric.
+
+Adding a cell edits no file that is there.  It adds files: the
+configuration (``benchmark/configs/``, unless the cell shares one), the
+cell's own file, the traffic file (unless it shares one) and, for a new
+stage, the stage module and the readers of its metrics.  It adds entries to
+``BENCHMARK.json``: the configuration, the workload, and the cell's name in
+the ``workloads`` list of every metric it reports.  The CPU tests find the
+new cell and its ``tiny`` sizes by themselves.
 
 A run: set-up (the stage makes its inputs from the seed and runs one warm
 unit), the window (units back to back until ``seconds`` have passed, then the
 last unit is finished), the metrics, the check against the plain reference,
-and the result line.
+and the result line.  A traced run also turns the program's spans on for the
+window and hands them, with its program counters, to the readers.
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ class Cell:
     config_entry: dict
     config: dict       # the configuration file
     traffic: dict      # benchmark/traffic/<traffic>.json
-    own: dict          # benchmark/cells/<cell>.json
+    own: dict          # benchmark/cells/<cell>.json, without ``tiny``
+    tiny: dict | None  # its ``tiny``: the CPU tests' overrides, never a real run's
 
     def end_to_end(self) -> list[dict]:
         return [m for m in self.spec["end_to_end"]
@@ -73,10 +83,12 @@ def find_cell(root: str, name: str) -> Cell:
         raise BenchmarkError(f"no cell {name!r} in BENCHMARK.json")
     config_entry = next(c for c in spec["configs"] if c["name"] == entry["config"])
     bench = os.path.join(root, "benchmark")
+    own = load_json(os.path.join(bench, "cells", f"{name}.json"))
+    tiny = own.pop("tiny", None)
     return Cell(root=root, name=name, entry=entry, spec=spec, config_entry=config_entry,
                 config=load_json(os.path.join(root, config_entry["file"])),
                 traffic=load_json(os.path.join(bench, "traffic", f"{entry['traffic']}.json")),
-                own=load_json(os.path.join(bench, "cells", f"{name}.json")))
+                own=own, tiny=tiny)
 
 
 def load_stage(kind: str):
@@ -182,6 +194,22 @@ def _load_libraries(device: str) -> None:
 
         _cuda.library("knn")
         _cuda.library("geom")
+        _cuda.library("optim")
+
+
+@contextlib.contextmanager
+def _spans_on(on: bool):
+    """The program's spans on while a traced run's set-up and window run."""
+    if not on:
+        yield
+        return
+    from autourdf_tpu_torch.utils import telemetry
+
+    telemetry.enable(True)
+    try:
+        yield
+    finally:
+        telemetry.enable(False)
 
 
 def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
@@ -212,7 +240,9 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
         run = Run(cell=cell, seed=seed, device=device, tmp=tmp, trace=trace,
                   overrides=dict(overrides or {}))
         stage = load_stage(cell.traffic["stage"]).Stage(run)
-        with program_context or contextlib.nullcontext():
+        from autourdf_tpu_torch.utils import programs, telemetry
+
+        with program_context or contextlib.nullcontext(), _spans_on(trace):
             split = {"process, imports and CUDA start": _start_device(device) - process_start}
             t = time.perf_counter()
             _load_libraries(device)
@@ -221,6 +251,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             setup_s = time.perf_counter() - process_start
             print("setup split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()),
                   file=sys.stderr, flush=True)
+            if trace:
+                telemetry.collect()             # the warm unit's spans
             units = []
             t0 = time.perf_counter()
             while True:
@@ -228,6 +260,9 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
                 if time.perf_counter() - t0 >= seconds:
                     break
             window_s = time.perf_counter() - t0
+            if trace:
+                run.data["spans"] = telemetry.collect()
+                run.data["programs"] = dict(programs.counters)
         print("units: " + " ".join(f"{u['seconds']:.3f}" for u in units) + " s",
               file=sys.stderr, flush=True)
 
@@ -247,6 +282,9 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             if sl is None:
                 raise BenchmarkError("the traced run profiled no slice")
             dev_info.update(busy_s=sl["busy_s"], window_s=sl["wall_s"])
+            from .trace import breakdown
+
+            span_names = {s["name"] for s in run.data["spans"]}
         else:
             values = stage.end_to_end(units, window_s)
             values["setup_s"] = setup_s
@@ -272,8 +310,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             "metrics": metrics,
             "device": dev_info,
         }
-        if trace and run.data.get("breakdown"):
-            result["breakdown"] = run.data["breakdown"]
+        if trace:
+            result["breakdown"] = breakdown(sl, span_names)
         result["readings"] = readings    # every reading; not printed in the result line
         result["checks"] = {c.name: {"value": float(c.value), "limit": float(c.limit)}
                             for c in checks}

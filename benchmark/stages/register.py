@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -30,7 +31,7 @@ from ..harness import BenchmarkError, merge_max, unit_seed
 from ..plyio import read_sequences
 from ..reference import full_fp32
 from ..reference import registration as ref
-from ..trace import DeviceSlice, breakdown
+from ..trace import DeviceSlice
 
 
 def power_limit() -> str:
@@ -90,8 +91,10 @@ class Stage:
             res = inner(*a, **k)
             if sl is not None:
                 self.run.data["slice"] = sl.stop()
-                self.run.data["breakdown"] = breakdown(sl.result)
                 self.run.data["register"] = self._slice_counts(a, k)
+                print(f"slice: {len(sl.result['kernels'])} device operations, user "
+                      f"annotations on the device {sl.result['annotations_s']!r} s",
+                      file=sys.stderr, flush=True)
             self.records[-1].append((a, k, res))
             return res
 

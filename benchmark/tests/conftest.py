@@ -13,12 +13,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# A cell at a size a CPU test holds: a few frames of a few hundred points,
-# and epochs enough for a second epoch program (a chunk is 100 epochs).
-TINY = {
-    "register.wx200_real": {"tiny_frames": [2, 2, 300], "epochs": 104, "num_seg": 4,
-                            "check_phases": 2},
-}
+from benchmark import harness  # noqa: E402
+
+CELLS = [w["name"] for w in harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))["workloads"]]
+
+# Each cell at a size a CPU test holds, from the ``tiny`` object of its own
+# file (for the register cells: a few frames of a few hundred points, and
+# epochs enough for a second epoch program, a chunk being 100 epochs).
+TINY = {cell: harness.find_cell(ROOT, cell).tiny for cell in CELLS}
 
 
 @pytest.fixture(autouse=True)
@@ -30,7 +32,5 @@ def _threads():
 
 
 def run_tiny(cell: str, seed: int = 123456789012, trace: bool = False, context=None) -> dict:
-    from benchmark import harness
-
     return harness.run_cell(ROOT, cell, seed, 0.0, trace, time.perf_counter(), device="cpu",
                             overrides=TINY[cell], program_context=context)

@@ -50,15 +50,32 @@ def test_reader_on_records_without_the_new_keys(metric, monkeypatch):
 
 
 def test_traced_tiny_run_leaves_the_spans_off():
-    """On the CPU no program is captured, so both readers find nothing; the
-    traced run stays correct and leaves the program's spans off."""
+    """On the CPU no program is captured, so both readers find nothing, and
+    no span is timed on the device; the host's spans of the window reach
+    the readers.  The traced run stays correct and leaves the program's
+    spans off."""
     cell = "register.wx200_real"
     r = harness.run_cell(ROOT, cell, 123456789012, 0.0, True, time.perf_counter(),
                          device="cpu",
                          overrides={**TINY[cell], "trace": {"unit": 0, "phase": 1}})
     assert r["correct"] is True, r["checks"]
-    for name in ("register.warmup_s", "register.kernels_per_epoch"):
+    for name in ("register.warmup_s", "register.kernels_per_epoch",
+                 "register.unit_device_idle", "register.segment_init_ms",
+                 "register.resample_ms"):
         assert name not in r["metrics"]
+    assert r["metrics"]["register.host_io_s"]["value"] > 0
     from autourdf_tpu_torch.utils import telemetry
 
     assert not telemetry._on and telemetry.collect() == []
+
+
+def test_untraced_tiny_run_leaves_the_spans_off(monkeypatch):
+    """An untraced run never turns the program's spans on."""
+    from autourdf_tpu_torch.utils import telemetry
+
+    calls = []
+    monkeypatch.setattr(telemetry, "enable", lambda on=True: calls.append(on))
+    r = harness.run_cell(ROOT, "register.wx200_real", 123456789013, 0.0, False,
+                         time.perf_counter(), device="cpu", overrides=TINY["register.wx200_real"])
+    assert r["correct"] is True, r["checks"]
+    assert calls == [] and not telemetry._on

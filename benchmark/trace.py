@@ -1,11 +1,17 @@
-"""A profiled slice of a run and what the per-layer readers take from it.
+"""A profiled slice of a run, the program's spans of a traced window, and
+what the per-layer readers take from them.
 
 ``DeviceSlice`` runs ``torch.profiler`` around a bounded part of one unit and
-reduces the trace to: every device kernel's name and interval, the device's
-busy seconds (the union of the kernel intervals), the slice's wall seconds on
-the host clock, and the breakdown the result line carries (the device
-operations that took most time, and the ten longest idle gaps, each named by the
-innermost host call that spans it).
+reduces the trace to: every device operation's name and interval (kernels,
+memory copies and sets; a user annotation that the profiler mirrors onto
+the device is no work, and goes with the host's events), the device's busy
+seconds (the union of those intervals), the slice's wall seconds on the
+host clock, the device operations that took most time, and the ten longest
+idle gaps with the host events that span each.  ``breakdown`` names each
+gap by the innermost of them and by the innermost program span among them.
+
+``units_of`` cuts the spans that ``utils/telemetry.py collect`` returns into
+the window's units, by their root span.
 """
 
 from __future__ import annotations
@@ -75,44 +81,84 @@ class DeviceSlice:
         _sync(self.device)
         wall = time.perf_counter() - self._t0
         self._prof.stop()
-        self.result = self.reduce(self._prof, wall)
+        self.result = reduce_events(self._prof.profiler.kineto_results.events(), self.label,
+                                    wall)
         self._prof = None
         return self.result
 
-    def reduce(self, prof, wall: float) -> dict:
-        kernels, host = [], []
-        # the profiler's raw events: building its FunctionEvents for a
-        # whole URDF build's some 10^6 events takes minutes
-        for e in prof.profiler.kineto_results.events():
-            s = e.start_ns() / 1e9
-            en = s + e.duration_ns() / 1e9
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                kernels.append((e.name(), s, en))
-            else:
-                host.append((e.name(), s, en))
-        intervals = [(s, e) for _, s, e in kernels]
-        busy = union_seconds(intervals)
-        by_name: dict[str, float] = defaultdict(float)
-        for n, s, e in kernels:
-            by_name[n] += e - s
-        device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        gaps = []
-        if intervals:
-            lo = min(s for _, s, _ in host + kernels)
-            hi = max(e for _, _, e in host + kernels)
-            longest = sorted(idle_gaps(intervals, lo, hi), key=lambda g: g[0] - g[1])[:10]
-            for gs, ge in longest:
-                mid = 0.5 * (gs + ge)
-                inner = [(e - s, n) for n, s, e in host if s <= mid <= e]
-                gaps.append((min(inner)[1] if inner else "host (no traced call)", ge - gs))
-        return {"label": self.label, "wall_s": wall, "busy_s": busy, "kernels": kernels,
-                "device_ops": [[n, t] for n, t in device_ops],
-                "idle_gaps": [[n, t] for n, t in gaps]}
+
+def reduce_events(events, label: str, wall: float) -> dict:
+    """The slice's reduction from the profiler's raw events (building its
+    FunctionEvents for a whole URDF build's some 10^6 events takes
+    minutes)."""
+    kernels, host = [], []
+    annotations = 0.0
+    for e in events:
+        s = e.start_ns() / 1e9
+        en = s + e.duration_ns() / 1e9
+        on_device = e.device_type() == torch.autograd.DeviceType.CUDA
+        if on_device and not e.is_user_annotation():
+            kernels.append((e.name(), s, en))
+        else:
+            host.append((e.name(), s, en))
+            if on_device:
+                annotations += en - s
+    intervals = [(s, e) for _, s, e in kernels]
+    busy = union_seconds(intervals)
+    by_name: dict[str, float] = defaultdict(float)
+    for n, s, e in kernels:
+        by_name[n] += e - s
+    device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    gaps = []
+    if intervals:
+        lo = min(s for _, s, _ in host + kernels)
+        hi = max(e for _, _, e in host + kernels)
+        longest = sorted(idle_gaps(intervals, lo, hi), key=lambda g: g[0] - g[1])[:10]
+        for gs, ge in longest:
+            mid = 0.5 * (gs + ge)
+            cover = sorted((e - s, n) for n, s, e in host if s <= mid <= e)
+            gaps.append(([n for _, n in cover], ge - gs))
+    return {"label": label, "wall_s": wall, "busy_s": busy, "kernels": kernels,
+            "device_ops": [[n, t] for n, t in device_ops], "idle_gaps": gaps,
+            "annotations_s": annotations}
 
 
-def breakdown(sl: dict) -> dict:
-    """The result line's ``breakdown`` from a reduced slice."""
-    return {"device_ops": sl["device_ops"], "idle_gaps": sl["idle_gaps"]}
+def breakdown(sl: dict, span_names=()) -> dict:
+    """The result line's ``breakdown`` from a reduced slice: each idle gap
+    named by the innermost host event that spans it, after the innermost
+    program span (a name in ``span_names``) among those events."""
+    gaps = []
+    for cover, seconds in sl["idle_gaps"]:
+        name = cover[0] if cover else "host (no traced call)"
+        span = next((n for n in cover if n in span_names), None)
+        if span is not None and span != name:
+            name = f"{span}: {name}"
+        gaps.append([name, seconds])
+    return {"device_ops": sl["device_ops"], "idle_gaps": gaps}
+
+
+def units_of(spans, root: str) -> list[list[dict]]:
+    """The spans of each root span named ``root``, the root first, in the
+    order the roots opened; ``spans`` as ``utils/telemetry.py collect``
+    returns them (a parent by its index).  None or no such root: ``[]``."""
+    units: dict[int, list[dict]] = {}
+    top: list[int] = []
+    for i, sp in enumerate(spans or []):
+        p = sp["parent"]
+        top.append(i if p is None else top[p])
+        if top[i] == i and sp["name"] == root:
+            units[i] = []
+        if top[i] in units:
+            units[top[i]].append(sp)
+    return list(units.values())
+
+
+def device_ms(sp: dict) -> float | None:
+    """A span's device interval in milliseconds (None if it was not timed on
+    the device)."""
+    if "device_start_ms" not in sp:
+        return None
+    return sp["device_end_ms"] - sp["device_start_ms"]
 
 
 def kernel_seconds(sl: dict, names: tuple[str, ...]) -> tuple[float, int]:
